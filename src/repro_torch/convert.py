@@ -1,0 +1,54 @@
+"""Carry a model and its bundle state from the JAX package to the port.
+
+`from_reference(w, bundle_state)` takes what the JAX package holds as
+plain numpy arrays: `RankSVM.w_`, and optionally the fields of a
+`repro.core.bmrm.BundleState` (the device driver's fixed-capacity plane
+buffer, e.g. `{f: np.asarray(getattr(state, f)) for f in state._fields}`).
+It returns the port's `RankSVM` with `w_` set and the same state as a
+torch `BundleState` on `device`, so the two packages score alike and
+take the same next BMRM step from there. Nothing of the JAX package is
+imported: the arguments are numpy arrays or anything numpy can read.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.bmrm import BundleState
+from .core.ranksvm import RankSVM
+from .kernels.platform import resolve_device
+
+_DTYPES = {'n_active': torch.int32, 'done': torch.bool}
+
+
+def bundle_state_from_arrays(fields, device=None) -> BundleState:
+    """A torch `BundleState` from a mapping (or namedtuple) of arrays with
+    the reference's field names."""
+    dev = resolve_device(device)
+    if hasattr(fields, '_asdict'):
+        fields = fields._asdict()
+    missing = [f for f in BundleState._fields if f not in fields]
+    if missing:
+        raise ValueError(f'bundle state lacks fields {missing}')
+    return BundleState(**{
+        f: torch.as_tensor(np.array(fields[f]),
+                           dtype=_DTYPES.get(f, torch.float32), device=dev)
+        for f in BundleState._fields})
+
+
+def from_reference(w, bundle_state=None, *, device=None, **ranksvm_kwargs):
+    """(RankSVM with `w_` = w, BundleState or None) on `device`.
+
+    `ranksvm_kwargs` are the estimator's arguments (lam, eps, method, ...),
+    which should match the reference estimator's for the next step to be
+    the same."""
+    svm = RankSVM(device=device, **ranksvm_kwargs)
+    w = np.asarray(w, np.float64).ravel()
+    svm.w_ = w
+    state = (None if bundle_state is None
+             else bundle_state_from_arrays(bundle_state, svm.device))
+    if state is not None and state.w.shape[0] != w.shape[0]:
+        raise ValueError(f'w has {w.shape[0]} features but the bundle '
+                         f'state {state.w.shape[0]}')
+    return svm, state
