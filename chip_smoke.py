@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the RankSVM trainer once on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port once on one NVIDIA H100: RankSVM training
+through the counting kernels, and RWKV-6 serving through the WKV kernel.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -14,20 +15,39 @@ line; any failure ends the run with a non-zero exit code:
            bit for bit: the pairwise kernel at m = 1, 127, 4096 with heavy
            ties; the rank-counts kernel at m = 65536 against its plain
            version and at m = 2^20 against the merge-sort tree.
-3. main    the main path at MSLR-WEB10K width (136 dense features),
+3. wkv_parity  the WKV forward kernel against its plain torch version
+           on the card, o, final state and chunk-boundary states: at the
+           prefill shape N = 320 (B = 8 x H = 40), T = 4096, K = 64 with
+           bf16 r/k/v, and in float32 at K = 8, 16, 32, 64 with T not a
+           multiple of 64 (chunk < 64). Bars: o within 1e-4 of its scale
+           plus one bf16 ulp, states within 1e-5 of their scale.
+4. main    the main path at MSLR-WEB10K width (136 dense features),
            m = 2^20 examples, five relevance grades, synthetic from
            --seed: `RankSVM(method='tree', engine='pallas').fit`, then
            engine='tree' on the same data. The rank-counts kernel must
            have been launched in the first fit, and the two objectives
            must agree within eps.
-4. auto    `RankSVM(method='auto', engine='auto').fit` on `cadata_like`
+5. auto    `RankSVM(method='auto', engine='auto').fit` on `cadata_like`
            at m = 4096 (8 features, real-valued utilities): the pairwise
            kernel must have been launched, and the objective must agree
            with the tree engine's within eps.
-5. guard   engine='pallas' on real-valued utilities at m = 2^20: more
+6. guard   engine='pallas' on real-valued utilities at m = 2^20: more
            distinct utilities than histogram levels, so the wrapper must
            count with the tree (no kernel launch) and equal it.
-6. time    where an iteration's time goes at the main shapes (CUDA
+7. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
+           layers, d = 2560, 40 heads of 64, d_ff = 8960, vocab 65536),
+           seeded random weights made on the card, wkv_impl='kernel':
+           prefill of B = 8 prompts of T = 4096 tokens (a cut of the
+           prefill_32k shape, 32 x 32768), then 32 greedy decode steps
+           (the loop of examples/serve.py). The WKV kernel must launch 32
+           times per prefill and never in decode; logits must be finite;
+           at B = 2, T = 256 prefill(T-1) + decode(1) must match the full
+           forward's last-position logits, and the kernel route the scan
+           route: within the reference's bars on the first two layers,
+           and within a fault bar over all 32 (LM_BARS below). Prints
+           prefill tokens/s, decode ms per token, the kernel's ms per
+           call, and profiler windows over a prefill and decode steps.
+8. time    where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
            bundle steps (device busy share, device operations per step).
@@ -35,13 +55,14 @@ line; any failure ends the run with a non-zero exit code:
 Then the card's name and power limit (nvidia-smi), one line
 {"kernels": [...]} with each kernel's time, its plain version's time,
 its bound (the larger of its bytes at 3.35 TB/s and its operations at
-67 TFLOP/s) and its launches on the main path, and last
+67 TFLOP/s) and its launches on its main path, and last
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -59,6 +80,10 @@ GRADE_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
 LAM = 1e-3
 EPS = 1e-3
 MAX_ITER = 300                    # depth cut of the main fits
+# RWKV-6 serving (lm phase): prefill batch and length (prefill_32k is
+# 32 x 32768), greedy decode steps, and the consistency checks' shape.
+LM_BATCH, LM_PROMPT, LM_DECODE = 8, 4096, 32
+CHECK_BATCH, CHECK_LEN = 2, 256
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 F32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 
@@ -115,9 +140,9 @@ def phase_build(ctx):
     secs = time.perf_counter() - t0
     regs = {}
     for src in _build.SOURCES:
-        for line in _build.build_log(src).splitlines():
-            if 'registers' in line:
-                regs[src] = line.split('ptxas info    :')[-1].strip()
+        regs[src] = [line.split('ptxas info    :')[-1].strip()
+                     for line in _build.build_log(src).splitlines()
+                     if 'registers' in line or 'spill' in line]
     return dict(seconds=secs, libraries=[p.name for p in paths.values()],
                 ptxas=regs)
 
@@ -165,6 +190,65 @@ def phase_parity(ctx):
     return out
 
 
+def _wkv_inputs(torch, n, t, kk, dtype, dev, g):
+    r, k, v = (torch.randn(n, t, kk, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    w = 0.5 + 0.499 * torch.rand(n, t, kk, generator=g, device=dev)
+    u = torch.randn(n, kk, generator=g, device=dev)
+    s0 = 0.1 * torch.randn(n, kk, kk, generator=g, device=dev)
+    return r, k, v, w, u, s0
+
+
+def _wkv_compare(torch, got, want):
+    """Errors of the kernel's (o, sT, boundaries) against the plain
+    version's, and whether they are inside the bars: o within 1e-4 of
+    its scale plus one ulp of bf16 where o is bf16 (a float32 sum in
+    another order can flip one rounding), states within 1e-5 of their
+    scale (tests/test_wkv_kernel.py's tolerances)."""
+    (o, sT, bnd), (op, sTp, bndp) = got, want
+    of, opf = o.float(), op.float()
+    scale = float(opf.abs().max())
+    tol = 1e-4 * scale
+    if o.dtype == torch.bfloat16:
+        tol = tol + torch.exp2(torch.floor(torch.log2(
+            opf.abs().clamp_min(1e-30))) - 7)
+    o_err = float((of - opf).abs().max())
+    out = dict(o_max_abs_err=o_err, o_scale=scale,
+               o_inside=bool(((of - opf).abs() <= tol).all()),
+               sT_rel_err=float((sT - sTp).abs().max() / sTp.abs().max()),
+               states_bit_equal=bool(torch.equal(sT, sTp)))
+    if bnd is not None:
+        out['boundaries_rel_err'] = float((bnd - bndp).abs().max()
+                                          / bndp.abs().max())
+        out['states_bit_equal'] &= bool(torch.equal(bnd, bndp))
+    return out
+
+
+def phase_wkv_parity(ctx):
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.kernels.wkv import ops as W
+    from repro_torch.kernels.wkv.ref import wkv_forward_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 5)
+    cases = ((320, 4096, 64, torch.bfloat16), (6, 100, 8, torch.float32),
+             (6, 200, 16, torch.float32), (6, 96, 32, torch.float32),
+             (6, 130, 64, torch.float32))
+    out = {}
+    for n, t, kk, dtype in cases:
+        args = _wkv_inputs(torch, n, t, kk, dtype, dev, g)
+        chunk = W._pick_chunk(t)
+        got = W.wkv_forward(*args, chunk=chunk)
+        want = wkv_forward_plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        errs = _wkv_compare(torch, got, want)
+        name = f'N{n}_T{t}_K{kk}_{str(dtype).split(".")[-1]}_chunk{chunk}'
+        check(errs['o_inside'] and errs['sT_rel_err'] <= 1e-5
+              and errs['boundaries_rel_err'] <= 1e-5,
+              f'WKV kernel != plain at {name}: {errs}')
+        out[name] = errs
+    return out
+
+
 def _fit(ctx, X, y, **kw):
     from repro_torch.core.ranksvm import RankSVM
     torch = ctx['torch']
@@ -177,18 +261,21 @@ def _fit(ctx, X, y, **kw):
     return svm, rep
 
 
-def _reset_counts():
+def _kernels():
     from repro_torch.kernels.pairwise_rank import ops as PR
     from repro_torch.kernels.rank_counts import ops as RC
-    PR.PAIRWISE.launches = 0
-    RC.RANK_COUNTS.launches = 0
+    from repro_torch.kernels.wkv import ops as W
+    return dict(pairwise=PR.PAIRWISE, rank_counts=RC.RANK_COUNTS,
+                wkv_fwd=W.WKV_FWD)
+
+
+def _reset_counts():
+    for kernel in _kernels().values():
+        kernel.launches = 0
 
 
 def _counts():
-    from repro_torch.kernels.pairwise_rank import ops as PR
-    from repro_torch.kernels.rank_counts import ops as RC
-    return dict(pairwise=PR.PAIRWISE.launches,
-                rank_counts=RC.RANK_COUNTS.launches)
+    return {name: k.launches for name, k in _kernels().items()}
 
 
 def phase_main(ctx):
@@ -350,6 +437,216 @@ def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
                 library_ms=None, bytes=nbytes, operations=ops, **extra)
 
 
+def _randomize_mixing(torch, model, g):
+    """The init leaves mu_*, w0 and u at zero, which would bypass the
+    token-shift lerp, the decay offset and the bonus; give them seeded
+    values, as the port's parity tests do."""
+    with torch.no_grad():
+        for lay in model.layers:
+            for blk in (lay.tm, lay.cm):
+                for name, p in blk.named_parameters():
+                    if name.startswith('mu_'):
+                        p.copy_(torch.rand(p.shape, generator=g,
+                                           device=p.device))
+            w0, u = lay.tm.w0, lay.tm.u
+            w0.copy_(3 * torch.rand(w0.shape, generator=g,
+                                    device=w0.device) - 2)
+            u.copy_(0.5 * torch.randn(u.shape, generator=g,
+                                      device=u.device))
+
+
+def _lm_consistency(ctx, model, cfg, g, depth):
+    """Last-position logits (float32) of the model cut to its first
+    `depth` layers (the same weights, no copy), at B = CHECK_BATCH,
+    T = CHECK_LEN: prefill(T-1) + decode(1) against the full forward on
+    each WKV route ('pd_<route>'), and the kernel route's full forward
+    against the scan route's. Largest absolute differences, the logits'
+    scale, and the differences' norms relative to the logits' norm."""
+    torch = ctx['torch']
+    from repro_torch.kernels.platform import full_f32
+    from repro_torch.models import lm as LM
+    if depth < cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+        model = LM.from_state_dict(cfg, {
+            k: v for k, v in model.state_dict().items()
+            if not k.startswith('layers.') or int(k.split('.')[1]) < depth})
+    toks = torch.randint(0, cfg.vocab, (CHECK_BATCH, CHECK_LEN),
+                         generator=g, device=ctx['dev'], dtype=torch.int32)
+    logits, out = {}, dict(depth=depth)
+
+    def diff(name, a, b):
+        out[f'{name}_max_abs_err'] = float((a - b).abs().max())
+        out[f'{name}_rel_norm'] = float((a - b).norm() / b.norm())
+
+    for impl in ('kernel', 'scan'):
+        c = dataclasses.replace(cfg, wkv_impl=impl)
+        with torch.no_grad(), full_f32():
+            hid = LM.forward_train(model, c, {'tokens': toks})
+            full = hid[:, -1].float() @ LM.lm_head_weight(model, c).float()
+        cache, _ = LM.forward_prefill(model, c, {'tokens': toks[:, :-1]})
+        _, dec = LM.forward_decode(model, c, cache,
+                                   {'tokens': toks[:, -1:]}, CHECK_LEN - 1)
+        check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
+              f'non-finite logits on the {impl} route')
+        logits[impl] = full
+        diff(f'pd_{impl}', dec, full)
+    diff('kernel_vs_scan', logits['kernel'], logits['scan'])
+    out['logit_scale'] = float(logits['scan'].abs().max())
+    return out
+
+
+def phase_lm(ctx):
+    torch, dev = ctx['torch'], ctx['dev']
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels.wkv import ops as W
+    from repro_torch.kernels.wkv.ref import wkv_forward_plain
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import lm as LM
+    cfg = dataclasses.replace(get('rwkv6-3b'), wkv_impl='kernel')
+    t0 = time.perf_counter()
+    model = LM.init_model(cfg, seed=ctx['seed'], device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 6)
+    _randomize_mixing(torch, model, g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                            device=dev, dtype=torch.int32)
+
+    def serve(tokens, steps):
+        """Prefill `tokens`, then `steps` greedy decode steps; returns the
+        generated ids, the prefill and decode seconds, and the kernel's
+        launches in each."""
+        _reset_counts()
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        cache, logits = prefill(model, {'tokens': tokens})
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        n_pre = _counts()['wkv_fwd']
+        ok = bool(torch.isfinite(logits).all())
+        out = [logits.argmax(-1)]
+        _reset_counts()
+        t_c = time.perf_counter()
+        for i in range(steps):
+            cache, logits = decode(model, cache, {'tokens': out[-1][:, None]
+                                                  .to(torch.int32)},
+                                   tokens.shape[1] + i)
+            ok &= bool(torch.isfinite(logits).all())
+            out.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        t_d = time.perf_counter()
+        return (torch.stack(out, 1), t_b - t_a, t_d - t_c, n_pre,
+                _counts()['wkv_fwd'], ok)
+
+    serve(prompts[:, :64], 2)                     # warm: libraries, cuBLAS
+    torch.cuda.reset_peak_memory_stats()
+    gen, pre_s, dec_s, n_pre, n_dec, finite = serve(prompts, LM_DECODE)
+    check(n_pre == cfg.n_layers, f'the WKV kernel launched {n_pre} times in '
+          f'a prefill of {cfg.n_layers} layers')
+    check(n_dec == 0, f'the WKV kernel launched {n_dec} times in decode')
+    check(finite, 'non-finite logits in prefill or decode')
+    ctx['launches']['wkv_fwd'] = n_pre
+    res = dict(n_params=sum(p.numel() for p in model.parameters()),
+               layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+               batch=LM_BATCH, prompt=LM_PROMPT, decode_steps=LM_DECODE,
+               init_seconds=init_s, prefill_seconds=pre_s,
+               prefill_tokens_per_s=LM_BATCH * LM_PROMPT / pre_s,
+               decode_ms_per_token=1e3 * dec_s / LM_DECODE,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               wkv_launches_prefill=n_pre, wkv_launches_decode=n_dec,
+               generated_ids_first_row=gen[0, :8].tolist())
+
+    # one prefill and a few decode steps under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_a = time.perf_counter()
+        cache, logits = prefill(model, {'tokens': prompts})
+        torch.cuda.synchronize()
+        wall_pre = 1e6 * (time.perf_counter() - t_a)
+    busy, n_ops, wkv_us = _device_busy(prof, 'wkv_fwd_kernel')
+    res['profile_prefill'] = dict(
+        wall_ms=wall_pre / 1e3, device_busy_ms=busy / 1e3,
+        idle_share=1.0 - busy / wall_pre if n_ops else None,
+        device_ops=n_ops, wkv_kernel_ms=wkv_us / 1e3,
+        wkv_share_of_device_time=wkv_us / busy if busy else None,
+        top_kernels=_top_kernels(prof))
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_a = time.perf_counter()
+        for i in range(4):
+            cache, logits = decode(model, cache, {'tokens': tok},
+                                   LM_PROMPT + i)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        wall_dec = 1e6 * (time.perf_counter() - t_a)
+    busy, n_ops, _ = _device_busy(prof)
+    res['profile_decode'] = dict(
+        ms_per_step=wall_dec / 4e3, device_busy_ms_per_step=busy / 4e3,
+        idle_share=1.0 - busy / wall_dec if n_ops else None,
+        device_ops_per_step=n_ops / 4, top_kernels=_top_kernels(prof))
+    del cache, logits
+
+    # LM_BARS: the reference's own bars hold the first two layers of the
+    # full-width weights, the depth they were set at (its reduced
+    # configs): prefill + decode on the scan route within 0.05
+    # (tests/test_models.py), and the kernel route within 0.05 of the
+    # logits' scale of the scan route (tests/test_wkv_kernel.py), for the
+    # full forward and for prefill + decode (whose last token runs the
+    # scan). Over all 32 layers bf16 rounding differences accumulate (the
+    # JAX package's own route difference there exceeds those bars:
+    # tools/rwkv_depth_drift.py), so the full depth is held to a bar
+    # that only a fault can cross: differences under 0.25 of the logits'
+    # norm, where a wrong state, layout or hand-off gives about 1.
+    short = _lm_consistency(ctx, model, cfg, g, 2)
+    full_depth = _lm_consistency(ctx, model, cfg, g, cfg.n_layers)
+    res['consistency'] = [short, full_depth]
+    bar = 0.05 * short['logit_scale']
+    check(short['pd_scan_max_abs_err'] <= 0.05
+          and short['pd_kernel_max_abs_err'] <= bar
+          and short['kernel_vs_scan_max_abs_err'] <= bar,
+          f'logits outside the bars at depth 2: {short}')
+    check(all(full_depth[f'{k}_rel_norm'] <= 0.25
+              for k in ('pd_scan', 'pd_kernel', 'kernel_vs_scan')),
+          f'logits differ by a fault at full depth: {full_depth}')
+    del model
+    torch.cuda.empty_cache()
+
+    # the kernel at the prefill shape (N = B*H, T, K), as the path calls it
+    n, kk = LM_BATCH * cfg.n_heads, cfg.rwkv_head_dim
+    args = _wkv_inputs(torch, n, LM_PROMPT, kk, torch.bfloat16, dev, g)
+    chunk = W._pick_chunk(LM_PROMPT)
+    ms = time_ms(torch, lambda: W._launch(*args, chunk, False), reps=10)
+    ms_bnd = time_ms(torch, lambda: W._launch(*args, chunk, True), reps=10)
+    got = W._launch(*args, chunk, False)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    want = wkv_forward_plain(*args, chunk=chunk, boundaries=False)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t_a)
+    errs = _wkv_compare(torch, got, want)
+    check(errs['o_inside'] and errs['sT_rel_err'] <= 1e-5,
+          f'WKV kernel != plain at the prefill shape: {errs}')
+    # bytes: r, k, v, o bf16 and w float32 (N*T*K each), u, s0 and sT
+    # float32, each read or written once; operations: about 6 K*V per
+    # (n, t) (the o matvec and bonus, the state decay and update)
+    nt = n * LM_PROMPT
+    nbytes = nt * kk * (2 * 4 + 4) + 4 * n * kk + 2 * 4 * n * kk * kk
+    ops = 6 * kk * kk * nt
+    ctx['wkv_row'] = _row(
+        'wkv_fwd', 'src/repro_torch/kernels/csrc/wkv_fwd.cu',
+        'src/repro/kernels/wkv/kernel.py:49', ctx['launches']['wkv_fwd'],
+        errs['o_max_abs_err'], ms, plain_ms, nbytes, ops,
+        shape=[n, LM_PROMPT, kk], ms_with_boundaries=ms_bnd,
+        launches_per_prefill=ctx['launches']['wkv_fwd'],
+        share_of_prefill_layer=ms / (1e3 * pre_s / cfg.n_layers))
+    res['wkv_kernel_ms'] = ms
+    return res
+
+
 def phase_time(ctx):
     """Per-iteration breakdown at the main shapes, by CUDA events."""
     torch, dev = ctx['torch'], ctx['dev']
@@ -379,8 +676,8 @@ def phase_time(ctx):
             torch, lambda: solve_bundle_dual_torch(G, b, LAM, mask,
                                                    n_iter=128), reps=3)
     out['bundle_step'] = _profile_bundle_step(ctx)
-    rows = [_rank_counts_row(ctx), _pairwise_row(ctx)]
-    ctx['rows'] = rows
+    ctx['rows'] = [_rank_counts_row(ctx), _pairwise_row(ctx),
+                   ctx['wkv_row']]
     return out
 
 
@@ -389,7 +686,6 @@ def _profile_bundle_step(ctx, steps: int = 3):
     steps at the main shapes (engine='pallas'), from torch.profiler: the
     union of the CUDA kernels' intervals against the window's wall time."""
     torch, dev = ctx['torch'], ctx['dev']
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.bmrm import (DEFAULT_MAX_PLANES, _bundle_step,
                                        init_bundle_state)
@@ -411,8 +707,23 @@ def _profile_bundle_step(ctx, steps: int = 3):
                 state, _ = _bundle_step(state, step, lam, eps, 128)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, n_ops, _ = _device_busy(prof)
+    if not n_ops:
+        return dict(ms_per_step=wall_us / 1e3 / steps, idle_share=None,
+                    note='the profiler saw no device activity')
+    return dict(ms_per_step=wall_us / 1e3 / steps,
+                device_busy_ms_per_step=busy / 1e3 / steps,
+                idle_share=1.0 - busy / wall_us,
+                device_ops_per_step=n_ops / steps)
+
+
+def _device_busy(prof, name_part=None):
+    """(microseconds in which some CUDA kernel ran, number of kernels,
+    summed microseconds of the kernels whose name holds `name_part`)
+    over a profiler window: the union of the kernels' intervals."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, cur_s, cur_e = 0.0, None, None
     for s_, e_ in spans:
         if cur_e is None or s_ > cur_e:
@@ -422,17 +733,28 @@ def _profile_bundle_step(ctx, steps: int = 3):
             cur_e = max(cur_e, e_)
     if cur_e is not None:
         busy += cur_e - cur_s
-    if not spans:
-        return dict(ms_per_step=wall_us / 1e3 / steps, idle_share=None,
-                    note='the profiler saw no device activity')
-    return dict(ms_per_step=wall_us / 1e3 / steps,
-                device_busy_ms_per_step=busy / 1e3 / steps,
-                idle_share=1.0 - busy / wall_us,
-                device_ops_per_step=len(spans) / steps)
+    named = sum(e.time_range.end - e.time_range.start for e in events
+                if name_part and name_part in e.name)
+    return busy, len(spans), named
+
+
+def _top_kernels(prof, k=6):
+    """The k CUDA kernels with the most device time in a profiler
+    window: [name (cut to 60 characters), ms, launches]."""
+    from torch.autograd import DeviceType
+    total = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, count = total.get(e.name, (0.0, 0))
+            total[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                             / 1e3, count + 1)
+    top = sorted(total.items(), key=lambda kv: -kv[1][0])[:k]
+    return [[name[:60], ms, count] for name, (ms, count) in top]
 
 
 PHASES = (('build', phase_build), ('parity', phase_parity),
-          ('main', phase_main), ('auto', phase_auto), ('guard', phase_guard),
+          ('wkv_parity', phase_wkv_parity), ('main', phase_main),
+          ('auto', phase_auto), ('guard', phase_guard), ('lm', phase_lm),
           ('time', phase_time))
 
 

@@ -1,4 +1,4 @@
-"""Carry a model and its bundle state from the JAX package to the port.
+"""Carry a model and its state from the JAX package to the port.
 
 `from_reference(w, bundle_state)` takes what the JAX package holds as
 plain numpy arrays: `RankSVM.w_`, and optionally the fields of a
@@ -8,6 +8,12 @@ It returns the port's `RankSVM` with `w_` set and the same state as a
 torch `BundleState` on `device`, so the two packages score alike and
 take the same next BMRM step from there. Nothing of the JAX package is
 imported: the arguments are numpy arrays or anything numpy can read.
+
+`lm_params_from_reference(tree)` does the same for an LM: it takes the
+reference's parameter pytree (nested dicts, layers stacked) as float32
+numpy arrays and returns the port's `state_dict` in bf16, for
+`models.lm.from_state_dict`. `lm_cache_from_reference(cache)` carries a
+decode cache, so both packages decode from the same state.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from .core.bmrm import BundleState
 from .core.ranksvm import RankSVM
 from .kernels.platform import resolve_device
+from .models.lm import state_dict_from_tree
 
 _DTYPES = {'n_active': torch.int32, 'done': torch.bool}
 
@@ -52,3 +59,28 @@ def from_reference(w, bundle_state=None, *, device=None, **ranksvm_kwargs):
         raise ValueError(f'w has {w.shape[0]} features but the bundle '
                          f'state {state.w.shape[0]}')
     return svm, state
+
+
+def _tree_to_torch(tree, dev):
+    return {k: (_tree_to_torch(v, dev) if isinstance(v, dict) else
+                torch.as_tensor(np.array(v, np.float32)).to(
+                    dev, torch.bfloat16))
+            for k, v in tree.items()}
+
+
+def lm_params_from_reference(tree, *, device=None):
+    """The port's LM state_dict from the reference's parameter pytree.
+
+    Leaves are numpy arrays that read as float32 (a bf16 JAX array cast
+    to float32 first, which is exact); they are cast to bf16 and the
+    leading layer axis of 'layers' is unstacked."""
+    return state_dict_from_tree(_tree_to_torch(tree, resolve_device(device)))
+
+
+def lm_cache_from_reference(cache, *, device=None):
+    """The port's decode cache from the reference's: 's' float32,
+    'tm_last' and 'cm_last' bf16, layers stacked as in both packages."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(v, np.float32)).to(
+        dev, torch.float32 if k == 's' else torch.bfloat16)
+        for k, v in cache.items()}

@@ -1,0 +1,56 @@
+"""Step builders and input specs for the RWKV-6 serving cells.
+
+The port of the reference's `launch/steps.py`, prefill and decode only:
+the train step (`make_step` for 'train') is the training slice (ROADMAP
+Queue 1 item 13(b)). Specs are `TensorSpec`s (shape, dtype), the
+counterpart of the reference's ShapeDtypeStructs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
+from ..models import lm as LM
+
+i32 = torch.int32
+
+
+def _check_frontend(cfg: ModelConfig):
+    if cfg.frontend != 'none':
+        raise NotImplementedError(
+            f'{cfg.name}: the {cfg.frontend} frontend is not ported '
+            '(ROADMAP Queue 1 item 13(c))')
+
+
+def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig):
+    _check_frontend(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    return {'tokens': LM.TensorSpec((b, s), i32),
+            'targets': LM.TensorSpec((b, s), i32)}
+
+
+def prefill_batch_specs(cfg: ModelConfig, shape: ShapeConfig):
+    specs = train_batch_specs(cfg, shape)
+    specs.pop('targets')
+    return specs
+
+
+def decode_batch_specs(cfg: ModelConfig, shape: ShapeConfig):
+    _check_frontend(cfg)
+    b = shape.global_batch
+    return {'batch': {'tokens': LM.TensorSpec((b, 1), i32)},
+            'cache': LM.cache_struct(cfg, b, shape.seq_len),
+            'pos': LM.TensorSpec((), i32)}
+
+
+def make_prefill_step(cfg: ModelConfig):
+    def prefill_step(params, batch):
+        return LM.forward_prefill(params, cfg, batch)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    def decode_step(params, cache, batch, pos):
+        return LM.forward_decode(params, cfg, cache, batch, pos)
+    return decode_step

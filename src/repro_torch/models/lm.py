@@ -1,0 +1,250 @@
+"""Decoder-LM assembly: parameter declarations, the layer stack, and the
+train / prefill / decode forwards, for the RWKV-6 family.
+
+The port of the reference's `models/lm.py`, rwkv6 branches only; the
+other families raise (ROADMAP Queue 1 item 13(c)). The reference scans
+one layer body over stacked parameters; the port holds the layers
+unstacked in an `nn.ModuleList` and loops over them. Declarations stay
+stacked (`model_defs`), so both packages count and draw the same leaves,
+and `state_dict_from_tree` unstacks a stacked tree into the port's
+`state_dict` keys ('layers.<l>.tm.wr', ...).
+
+The forwards take the model where the reference takes its parameter
+tree, and the config separately, so that one set of weights can run
+either WKV route. Prefill and decode are serving entry points and run
+without autograd. The decode cache keeps the reference's stacked layout:
+'s' (L, B, H, K, K) float32, 'tm_last' and 'cm_last' (L, B, d) bf16, the
+last token of each layer's normed inputs.
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.platform import full_f32, resolve_device
+from . import rwkv6 as R
+from .layers import RMSNorm, rmsnorm, rmsnorm_defs
+from .params import ParamDef, add_params, init_params, stack_tree
+
+f32 = torch.float32
+bf16 = torch.bfloat16
+
+# Shape and dtype of a tensor that is not allocated (the counterpart of
+# jax.ShapeDtypeStruct).
+TensorSpec = collections.namedtuple('TensorSpec', 'shape dtype')
+
+
+def _check_family(cfg):
+    if cfg.attn != 'rwkv6':
+        raise NotImplementedError(
+            f'{cfg.name}: only the RWKV-6 family is ported; attention, MLA, '
+            'MoE and Mamba are ROADMAP Queue 1 item 13(c)')
+
+
+def padded_vocab(cfg) -> int:
+    """Vocab rounded up to 256 (the reference's rule)."""
+    return -(-cfg.vocab // 256) * 256
+
+
+# ------------------------------------------------------------- declarations
+
+
+def _layer_defs(cfg):
+    d = R.rwkv_defs(cfg)
+    d['ln1'] = rmsnorm_defs(cfg.d_model)
+    d['ln2'] = rmsnorm_defs(cfg.d_model)
+    return d
+
+
+def _top_defs(cfg):
+    vp = padded_vocab(cfg)
+    d = cfg.d_model
+    defs = {
+        'embed': ParamDef((vp, d), ('vocab', 'embed'), scale=0.02),
+        'score_head': ParamDef((d,), ('embed_act',), scale=0.02),
+    }
+    if not cfg.tie_embeddings:
+        defs['lm_head'] = ParamDef((d, vp), ('embed', 'vocab'))
+    return defs
+
+
+def model_defs(cfg):
+    _check_family(cfg)
+    defs = _top_defs(cfg)
+    defs['ln_f'] = rmsnorm_defs(cfg.d_model)
+    defs['layers'] = stack_tree(_layer_defs(cfg), cfg.n_layers)
+    return defs
+
+
+# ------------------------------------------------------------- modules
+
+
+class RWKVLayer(nn.Module):
+    """One RWKV-6 layer: ln1, tm (time mix), ln2, cm (channel mix)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = RMSNorm(cfg.d_model, device)
+        self.tm = R.TimeMix(cfg, device)
+        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.cm = R.ChannelMix(cfg, device)
+
+    def forward(self, x, state=None, tm_last=None, cm_last=None):
+        return _rwkv_layer(self, self.cfg, x, state, tm_last, cm_last)
+
+
+class LM(nn.Module):
+    """The decoder LM: embed, layers (unstacked), ln_f, lm_head (unless
+    tied) and score_head, with the reference's keys, in bf16. Parameters
+    are left uninitialized; `init_model` and `from_state_dict` fill
+    them."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        _check_family(cfg)
+        self.cfg = cfg
+        add_params(self, _top_defs(cfg), device)
+        self.ln_f = RMSNorm(cfg.d_model, device)
+        self.layers = nn.ModuleList(RWKVLayer(cfg, device)
+                                    for _ in range(cfg.n_layers))
+
+    def forward(self, tokens):
+        return forward_train(self, self.cfg, {'tokens': tokens})
+
+
+def state_dict_from_tree(tree, prefix=''):
+    """The port's state_dict from a (stacked) parameter tree in the
+    reference's layout: the leading layer axis of 'layers' is unstacked
+    (as views, no copy)."""
+    out = {}
+    for key, val in tree.items():
+        name = prefix + key
+        if isinstance(val, dict):
+            out.update(state_dict_from_tree(val, name + '.'))
+        elif name.startswith('layers.'):
+            rest = name[len('layers.'):]
+            for l, layer in enumerate(val.unbind(0)):
+                out[f'layers.{l}.{rest}'] = layer
+        else:
+            out[name] = val
+    return out
+
+
+def from_state_dict(cfg, state_dict) -> LM:
+    """An `LM` whose parameters are the tensors of `state_dict` (no copy;
+    device and dtype are theirs)."""
+    model = LM(cfg, device='meta')
+    model.load_state_dict(state_dict, strict=True, assign=True)
+    return model
+
+
+def init_model(cfg, seed: int = 0, device=None) -> LM:
+    """An `LM` with the reference's initialization (`init_params` over
+    `model_defs(cfg)`, bf16) drawn from a `torch.Generator` seeded with
+    `seed` on `device` (default: the CUDA device)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return from_state_dict(cfg, state_dict_from_tree(
+        init_params(model_defs(cfg), gen)))
+
+
+# ------------------------------------------------------------- cache
+
+
+def cache_struct(cfg, batch: int, seq: int, dtype=bf16):
+    """TensorSpecs of the decode cache (also used to allocate). The RWKV-6
+    state does not grow with `seq`."""
+    _check_family(cfg)
+    h, k, d = cfg.n_heads, cfg.rwkv_head_dim, cfg.d_model
+    return {'s': TensorSpec((cfg.n_layers, batch, h, k, k), f32),
+            'tm_last': TensorSpec((cfg.n_layers, batch, d), dtype),
+            'cm_last': TensorSpec((cfg.n_layers, batch, d), dtype)}
+
+
+def init_cache(cfg, batch: int, seq: int, dtype=bf16, device=None):
+    dev = resolve_device(device)
+    return {name: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+            for name, s in cache_struct(cfg, batch, seq, dtype).items()}
+
+
+# ------------------------------------------------------------- forwards
+
+
+def _rwkv_layer(lp, cfg, x, state=None, tm_last=None, cm_last=None):
+    h, new_s, new_tm = R.rwkv_time_mix(lp.tm, cfg, rmsnorm(lp.ln1, x),
+                                       state=state, shift_last=tm_last)
+    x = x + h
+    h2, new_cm = R.rwkv_channel_mix(lp.cm, cfg, rmsnorm(lp.ln2, x),
+                                    shift_last=cm_last)
+    x = x + h2
+    return x, new_s, new_tm, new_cm
+
+
+def _embed_tokens(params, cfg, tokens):
+    return F.embedding(tokens, params.embed)
+
+
+def lm_head_weight(params, cfg):
+    if cfg.tie_embeddings:
+        return params.embed.T
+    return params.lm_head
+
+
+def _last_logits(params, cfg, x):
+    """Last-position logits (B, vocab_padded): a bf16 x bf16 product with
+    float32 accumulation and output, never rounded to bf16."""
+    return x[:, -1].to(bf16).to(f32) @ lm_head_weight(params, cfg).to(f32)
+
+
+def forward_train(params, cfg, batch):
+    """Full causal forward -> final hidden states (B, S, d) bf16. Forward
+    only: through the WKV kernel route it needs autograd off (the
+    backward is the training slice)."""
+    with full_f32():
+        x = _embed_tokens(params, cfg, batch['tokens']).to(bf16)
+        for lp in params.layers:
+            x, _, _, _ = _rwkv_layer(lp, cfg, x)
+        return rmsnorm(params.ln_f, x)
+
+
+@torch.no_grad()
+def forward_prefill(params, cfg, batch):
+    """Causal forward that also returns the populated state cache and the
+    last-position logits (B, vocab_padded) float32."""
+    with full_f32():
+        x = _embed_tokens(params, cfg, batch['tokens']).to(bf16)
+        cache = {'s': [], 'tm_last': [], 'cm_last': []}
+        for lp in params.layers:
+            x, st, tm, cm = _rwkv_layer(lp, cfg, x)
+            cache['s'].append(st)
+            cache['tm_last'].append(tm)
+            cache['cm_last'].append(cm)
+        x = rmsnorm(params.ln_f, x)
+        logits = _last_logits(params, cfg, x)
+    return {k: torch.stack(v) for k, v in cache.items()}, logits
+
+
+@torch.no_grad()
+def forward_decode(params, cfg, cache, batch, pos):
+    """One-token decode from the state cache. `pos` (the count of tokens
+    already in the cache) is taken for the reference's signature; the
+    RWKV-6 state needs no position. Returns (new_cache, logits)."""
+    with full_f32():
+        x = _embed_tokens(params, cfg, batch['tokens']).to(bf16)  # (B,1,d)
+        new = {'s': [], 'tm_last': [], 'cm_last': []}
+        for l, lp in enumerate(params.layers):
+            x, st, tm, cm = _rwkv_layer(
+                lp, cfg, x, state=cache['s'][l],
+                tm_last=cache['tm_last'][l], cm_last=cache['cm_last'][l])
+            new['s'].append(st)
+            new['tm_last'].append(tm)
+            new['cm_last'].append(cm)
+        x = rmsnorm(params.ln_f, x)
+        logits = _last_logits(params, cfg, x)
+    return {k: torch.stack(v) for k, v in new.items()}, logits

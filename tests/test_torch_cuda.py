@@ -1,5 +1,8 @@
-"""The port on the card: each CUDA kernel against its plain torch version,
-bit for bit, and a fit on the card against the same fit on the CPU.
+"""The port on the card: each CUDA kernel against its plain torch version
+(the counting kernels bit for bit; the WKV kernel's states bit for bit
+and its o within the tolerances below), a fit on the card against the
+same fit on the CPU, and the reduced RWKV-6 prefill on the card against
+the CPU.
 
 Every test here needs a CUDA device (Hopper, for the sm_90a kernels) and
 is marked `cuda`; without one it skips. This module imports neither JAX
@@ -22,6 +25,10 @@ from repro_torch.kernels.pairwise_rank.ref import (  # noqa: E402
 from repro_torch.kernels.rank_counts import ops as RC  # noqa: E402
 from repro_torch.kernels.rank_counts.ref import (  # noqa: E402
     rank_counts_plain)
+from repro_torch.configs.reduced import reduced  # noqa: E402
+from repro_torch.kernels.wkv import ops as W  # noqa: E402
+from repro_torch.kernels.wkv.ref import wkv_forward_plain  # noqa: E402
+from repro_torch.models import lm as LM  # noqa: E402
 from torch_parity import cuda_device, torch_one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.cuda
@@ -79,3 +86,76 @@ def test_fit_on_the_card_matches_the_cpu(data, engine, cuda_device):
     j_card = on_card.objective(ds.X, ds.y)
     j_cpu = on_cpu.objective(ds.X, ds.y)
     assert abs(j_card - j_cpu) <= 1e-4
+
+
+def _wkv_case(nn, tt, kk, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed + 97 * kk + tt)
+    r, k, v = (torch.as_tensor(rng.normal(size=(nn, tt, kk)).astype(
+        np.float32), device=dev).to(dtype) for _ in range(3))
+    w = torch.as_tensor(rng.uniform(0.5, 0.999, size=(nn, tt, kk)).astype(
+        np.float32), device=dev)
+    u = torch.as_tensor(rng.normal(size=(nn, kk)).astype(np.float32),
+                        device=dev)
+    s0 = torch.as_tensor((0.1 * rng.normal(size=(nn, kk, kk))).astype(
+        np.float32), device=dev)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize('tt', [128, 100])
+@pytest.mark.parametrize('kk', [8, 16, 32, 64])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_wkv_kernel_matches_plain(dtype, kk, tt, cuda_device):
+    """The kernel rounds each product and sum of the state update as the
+    plain version does, so states and boundaries are bit-equal; o differs
+    in the order of its K-term sum: 1e-4 of its scale, plus one ulp of
+    the output dtype where o is rounded to bf16. T = 100 gives chunk 4."""
+    args = _wkv_case(6, tt, kk, dtype, cuda_device)
+    chunk = W._pick_chunk(tt)
+    before = W.WKV_FWD.launches
+    o, sT, bnd = W.wkv_forward(*args, chunk=chunk)
+    op, sTp, bndp = wkv_forward_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert W.WKV_FWD.launches == before + 1
+    assert o.dtype == dtype and bnd.shape == (6, tt // chunk, kk, kk)
+    assert torch.equal(sT, sTp) and torch.equal(bnd, bndp)
+    of, opf = o.float(), op.float()
+    tol = 1e-4 * float(opf.abs().max())
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** (torch.floor(torch.log2(
+            opf.abs().clamp_min(1e-30))) - 7)
+    assert bool(((of - opf).abs() <= tol).all())
+
+
+def test_wkv_apply_on_the_card_writes_no_boundaries(cuda_device):
+    args = _wkv_case(4, 64, 64, torch.bfloat16, cuda_device)
+    before = W.WKV_FWD.launches
+    o, sT = W.wkv_apply(*args)
+    op, sTp, _ = wkv_forward_plain(*args, chunk=64, boundaries=False)
+    torch.cuda.synchronize()
+    assert W.WKV_FWD.launches == before + 1
+    assert torch.equal(sT, sTp)
+
+
+@pytest.mark.parametrize('impl', ['kernel', 'scan'])
+def test_rwkv_prefill_on_the_card_matches_the_cpu(impl, cuda_device):
+    """Reduced RWKV-6 with the same weights on both devices: the kernel
+    route launches the WKV kernel once per layer, and the logits and
+    states agree to 5% of their scale (bf16 activations, rounded in
+    another order by the card's matmuls)."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced('rwkv6-3b'), wkv_impl=impl)
+    cpu = LM.init_model(cfg, seed=0, device='cpu')
+    card = LM.from_state_dict(cfg, {k: v.to(cuda_device)
+                                    for k, v in cpu.state_dict().items()})
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 64)), dtype=torch.int32)
+    before = W.WKV_FWD.launches
+    cache, lg = LM.forward_prefill(card, cfg, {'tokens': toks.to(
+        cuda_device)})
+    torch.cuda.synchronize()
+    want = cfg.n_layers if impl == 'kernel' else 0
+    assert W.WKV_FWD.launches == before + want
+    cache_c, lg_c = LM.forward_prefill(cpu, cfg, {'tokens': toks})
+    for a, b in ((lg, lg_c), (cache['s'], cache_c['s'])):
+        assert float((a.cpu() - b).abs().max()) <= 0.05 * float(
+            b.abs().max())

@@ -166,7 +166,12 @@ def test_port_imports_neither_jax_nor_the_reference():
             'import repro_torch, repro_torch.convert, repro_torch.data, '
             'repro_torch.core.ranksvm, repro_torch.kernels._build, '
             'repro_torch.kernels.pairwise_rank.ops, '
-            'repro_torch.kernels.rank_counts.ops; '
+            'repro_torch.kernels.rank_counts.ops, '
+            'repro_torch.configs.registry, repro_torch.configs.reduced, '
+            'repro_torch.models.lm, repro_torch.models.rwkv6, '
+            'repro_torch.models.layers, repro_torch.models.params, '
+            'repro_torch.launch.steps, repro_torch.kernels.wkv.ops, '
+            'repro_torch.kernels.wkv.ref; '
             "assert 'jax' not in sys.modules, 'the port pulled in jax'; "
             "assert 'repro' not in sys.modules, "
             "'the port pulled in the JAX package'")
