@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA H100: RankSVM training
-through the counting kernels, and RWKV-6 serving through the WKV kernel.
+through the counting kernels, RWKV-6 serving through the WKV forward
+kernel, and RWKV-6 training through both WKV kernels.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -21,20 +22,27 @@ line; any failure ends the run with a non-zero exit code:
            bf16 r/k/v, and in float32 at K = 8, 16, 32, 64 with T not a
            multiple of 64 (chunk < 64). Bars: o within 1e-4 of its scale
            plus one bf16 ulp, states within 1e-5 of their scale.
-4. main    the main path at MSLR-WEB10K width (136 dense features),
+4. wkv_bwd_parity  the WKV backward kernel against its plain torch
+           version on the card, all six outputs (dr, dk, dv, dw, du, ds0)
+           from the forward kernel's boundaries: at the training shape
+           N = 160 (B = 4 x H = 40), T = 4096, K = 64 with bf16 r/k/v/do,
+           and in float32 at K = 8, 16, 32, 64 with T not a multiple of 64.
+           Bars: each output within 1e-4 of its scale plus one bf16 ulp
+           for bf16 outputs; ds0 bit-equal.
+5. main    the main path at MSLR-WEB10K width (136 dense features),
            m = 2^20 examples, five relevance grades, synthetic from
            --seed: `RankSVM(method='tree', engine='pallas').fit`, then
            engine='tree' on the same data. The rank-counts kernel must
            have been launched in the first fit, and the two objectives
            must agree within eps.
-5. auto    `RankSVM(method='auto', engine='auto').fit` on `cadata_like`
+6. auto    `RankSVM(method='auto', engine='auto').fit` on `cadata_like`
            at m = 4096 (8 features, real-valued utilities): the pairwise
            kernel must have been launched, and the objective must agree
            with the tree engine's within eps.
-6. guard   engine='pallas' on real-valued utilities at m = 2^20: more
+7. guard   engine='pallas' on real-valued utilities at m = 2^20: more
            distinct utilities than histogram levels, so the wrapper must
            count with the tree (no kernel launch) and equal it.
-7. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
+8. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
            layers, d = 2560, 40 heads of 64, d_ff = 8960, vocab 65536),
            seeded random weights made on the card, wkv_impl='kernel':
            prefill of B = 8 prompts of T = 4096 tokens (a cut of the
@@ -47,7 +55,23 @@ line; any failure ends the run with a non-zero exit code:
            and within a fault bar over all 32 (LM_BARS below). Prints
            prefill tokens/s, decode ms per token, the kernel's ms per
            call, and profiler windows over a prefill and decode steps.
-8. time    where an iteration's time goes at the main shapes (CUDA
+           It releases its model before the next phase.
+9. train   RWKV-6 training at the full rwkv6-3b width and depth, seeded
+           weights as in lm, wkv_impl='kernel', remat='layer', AdamW
+           (f32 master, m, v): first the gradients at B = 1, T = 256, the
+           kernel route against the scan route on the same weights, every
+           leaf within GRAD_BARS on the first two layers, and the median
+           leaf within a fault bar over all 32; then `make_train_step` at
+           B = 4 x T = 4096 (a cut of train_4k, 256 x 4096) for three steps of
+           objective='lm' on `TokenPipeline` batches and two of
+           'rank_hinge' on `RewardPipeline` batches, from --seed. Loss,
+           gnorm and lr must be finite, parameters and master weights must
+           move, and each step must launch the WKV forward kernel 64 times
+           (forward and remat recompute) and the backward kernel 32
+           times. Prints train tokens/s, seconds per step, peak device
+           memory, a profiler window over the last lm step, and the
+           backward kernel's time at the training shape.
+10. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
            bundle steps (device busy share, device operations per step).
@@ -84,6 +108,11 @@ MAX_ITER = 300                    # depth cut of the main fits
 # 32 x 32768), greedy decode steps, and the consistency checks' shape.
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 4096, 32
 CHECK_BATCH, CHECK_LEN = 2, 256
+# RWKV-6 training (train phase): batch and length (train_4k is 256 x
+# 4096), steps of each objective, and the gradient checks' shape.
+TRAIN_BATCH, TRAIN_LEN = 4, 4096
+TRAIN_LM_STEPS, TRAIN_RANK_STEPS = 3, 2
+GRAD_BATCH, GRAD_LEN = 1, 256
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 F32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 
@@ -249,6 +278,67 @@ def phase_wkv_parity(ctx):
     return out
 
 
+WKV_GRADS = ('dr', 'dk', 'dv', 'dw', 'du', 'ds0')
+
+
+def _wkv_bwd_inputs(torch, n, t, kk, dtype, dev, g):
+    """Backward-kernel inputs: the forward's inputs, its boundaries from
+    the forward kernel, a cotangent do in r's dtype and dsT float32."""
+    from repro_torch.kernels.wkv import ops as W
+    r, k, v, w, u, s0 = _wkv_inputs(torch, n, t, kk, dtype, dev, g)
+    chunk = W._pick_chunk(t)
+    _, _, bnd = W.wkv_forward(r, k, v, w, u, s0, chunk=chunk)
+    do = torch.randn(n, t, kk, generator=g, device=dev).to(dtype)
+    dsT = torch.randn(n, kk, kk, generator=g, device=dev)
+    return (r, k, v, w, u, bnd, do, dsT), chunk
+
+
+def _wkv_bwd_compare(torch, got, want):
+    """Errors of the backward kernel's six outputs against the plain
+    version's, and whether each is inside its bar: 1e-4 of the output's
+    scale, plus one bf16 ulp of each value where the output is bf16 (dr,
+    dk, dv on the model path). ds0, whose dS updates are rounded in the
+    plain version's order, must be bit-equal."""
+    out = {}
+    for name, a, b in zip(WKV_GRADS, got, want):
+        af, bf = a.float(), b.float()
+        scale = float(bf.abs().max())
+        tol = 1e-4 * scale
+        if a.dtype == torch.bfloat16:
+            tol = tol + torch.exp2(torch.floor(torch.log2(
+                bf.abs().clamp_min(1e-30))) - 7)
+        out[name] = dict(max_abs_err=float((af - bf).abs().max()),
+                         scale=scale,
+                         inside=bool(((af - bf).abs() <= tol).all()))
+    out['ds0_bit_equal'] = bool(torch.equal(got[5], want[5]))
+    out['all_inside'] = (out['ds0_bit_equal']
+                         and all(out[k]['inside'] for k in WKV_GRADS))
+    return out
+
+
+def phase_wkv_bwd_parity(ctx):
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.kernels.wkv import ops as W
+    from repro_torch.kernels.wkv.ref import wkv_backward_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 7)
+    cases = ((TRAIN_BATCH * 40, TRAIN_LEN, 64, torch.bfloat16),
+             (6, 100, 8, torch.float32), (6, 200, 16, torch.float32),
+             (6, 96, 32, torch.float32), (6, 130, 64, torch.float32))
+    out = {}
+    for n, t, kk, dtype in cases:
+        args, chunk = _wkv_bwd_inputs(torch, n, t, kk, dtype, dev, g)
+        got = W.wkv_backward(*args, chunk=chunk)
+        want = wkv_backward_plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        errs = _wkv_bwd_compare(torch, got, want)
+        name = f'N{n}_T{t}_K{kk}_{str(dtype).split(".")[-1]}_chunk{chunk}'
+        check(errs['all_inside'], f'WKV backward kernel != plain at {name}: '
+              f'{errs}')
+        out[name] = errs
+    return out
+
+
 def _fit(ctx, X, y, **kw):
     from repro_torch.core.ranksvm import RankSVM
     torch = ctx['torch']
@@ -266,7 +356,7 @@ def _kernels():
     from repro_torch.kernels.rank_counts import ops as RC
     from repro_torch.kernels.wkv import ops as W
     return dict(pairwise=PR.PAIRWISE, rank_counts=RC.RANK_COUNTS,
-                wkv_fwd=W.WKV_FWD)
+                wkv_fwd=W.WKV_FWD, wkv_bwd=W.WKV_BWD)
 
 
 def _reset_counts():
@@ -644,7 +734,236 @@ def phase_lm(ctx):
         launches_per_prefill=ctx['launches']['wkv_fwd'],
         share_of_prefill_layer=ms / (1e3 * pre_s / cfg.n_layers))
     res['wkv_kernel_ms'] = ms
+    del args, got, want
+    torch.cuda.empty_cache()
     return res
+
+
+# GRAD_BARS: the JAX package's own kernel-vs-scan gradient gap on the
+# first two layers (tools/rwkv_grad_gap.py, CPU, d = 256, seeds 0-2: per
+# leaf at most 0.0557 in relative norm and 0.108 in largest difference
+# over the leaf's scale) doubled. Over all 32 layers bf16 differences
+# accumulate until single leaves decorrelate: the same tool at 32 layers
+# finds the JAX package's routes 1.0 apart in relative norm on its worst
+# leaf (a u), with the median leaf at 0.36. So the full depth is held to
+# a fault bar on the median leaf's relative norm, GRAD_FAULT_BAR, which a
+# fault that reaches every layer (a wrong layout, state or hand-off in the
+# WKV op, which puts a leaf at 1 or more) crosses and drift does not.
+GRAD_BARS = dict(rel_norm=0.12, max_abs_over_scale=0.22)
+GRAD_FAULT_BAR = 0.75
+
+
+def _route_grads(torch, model, cfg, batch, impl):
+    """(loss, {name: gradient}) of the lm loss through the `impl` route,
+    remat='layer'."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.trainer import loss_and_grads
+    from repro_torch.kernels.platform import full_f32
+    with full_f32():
+        loss, grads = loss_and_grads(
+            model, dataclasses.replace(cfg, wkv_impl=impl),
+            TrainConfig(remat='layer'), batch)
+    check(bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(v).all()) for v in grads.values()),
+        f'non-finite loss or gradients on the {impl} route')
+    return loss, grads
+
+
+def _grad_gap(ctx, model, cfg, g, depth):
+    """Kernel route against scan route on the model cut to its first
+    `depth` layers (the same weights, no copy), at B = GRAD_BATCH,
+    T = GRAD_LEN: the largest per-leaf relative norm of the gradients'
+    difference and largest difference over the leaf's scale, with the
+    leaves that attain them, the median leaf's relative norm, and the WKV
+    launches of the kernel route."""
+    torch = ctx['torch']
+    from repro_torch.models import lm as LM
+    if depth < cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+        model = LM.from_state_dict(cfg, {
+            k: v for k, v in model.state_dict().items()
+            if not k.startswith('layers.') or int(k.split('.')[1]) < depth})
+    seq = torch.randint(0, cfg.vocab, (GRAD_BATCH, GRAD_LEN + 1),
+                        generator=g, device=ctx['dev'], dtype=torch.int32)
+    batch = {'tokens': seq[:, :-1], 'targets': seq[:, 1:]}
+    _reset_counts()
+    loss_k, gk = _route_grads(torch, model, cfg, batch, 'kernel')
+    launches = _counts()
+    loss_s, gs = _route_grads(torch, model, cfg, batch, 'scan')
+    out = dict(depth=depth, loss_kernel=float(loss_k), loss_scan=float(loss_s),
+               wkv_fwd_launches=launches['wkv_fwd'],
+               wkv_bwd_launches=launches['wkv_bwd'],
+               rel_norm=[0.0, None], max_abs_over_scale=[0.0, None])
+    rels = []
+    for name, b in gs.items():
+        a, b = gk[name].float(), b.float()
+        norm, scale = float(b.norm()), float(b.abs().max())
+        if norm == 0.0:
+            continue
+        rels.append(float((a - b).norm()) / norm)
+        for key, val in (('rel_norm', rels[-1]),
+                         ('max_abs_over_scale',
+                          float((a - b).abs().max()) / scale)):
+            if val > out[key][0]:
+                out[key] = [val, name]
+    out['median_rel_norm'] = sorted(rels)[len(rels) // 2]
+    check(launches['wkv_fwd'] == 2 * depth and launches['wkv_bwd'] == depth,
+          f'gradient check at depth {depth} launched {launches}')
+    return out
+
+
+def phase_train(ctx):
+    torch, dev = ctx['torch'], ctx['dev']
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.data import (RewardPipeline, TokenPipeline,
+                                  TokenPipelineConfig)
+    from repro_torch.models import lm as LM
+    from repro_torch.train.trainer import make_train_step, state_for
+    cfg = dataclasses.replace(get('rwkv6-3b'), wkv_impl='kernel')
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 8)
+    model = LM.init_model(cfg, seed=ctx['seed'], device=dev)
+    _randomize_mixing(torch, model, g)
+
+    short = _grad_gap(ctx, model, cfg, g, 2)
+    full_depth = _grad_gap(ctx, model, cfg, g, cfg.n_layers)
+    check(short['rel_norm'][0] <= GRAD_BARS['rel_norm']
+          and short['max_abs_over_scale'][0]
+          <= GRAD_BARS['max_abs_over_scale'],
+          f'gradients outside the bars at depth 2: {short}')
+    check(full_depth['median_rel_norm'] <= GRAD_FAULT_BAR,
+          f'gradients differ by a fault at full depth: {full_depth}')
+    torch.cuda.empty_cache()
+
+    n_steps = TRAIN_LM_STEPS + TRAIN_RANK_STEPS
+    tcfg = TrainConfig(objective='lm', remat='layer', microbatches=1,
+                       warmup_steps=1, decay_steps=n_steps)
+    steps = {'lm': make_train_step(cfg, tcfg),
+             'rank_hinge': make_train_step(cfg, dataclasses.replace(
+                 tcfg, objective='rank_hinge'))}
+    tokens = TokenPipeline(TokenPipelineConfig(cfg.vocab, TRAIN_LEN,
+                                               TRAIN_BATCH, seed=ctx['seed']))
+    rewards = RewardPipeline(cfg.vocab, TRAIN_LEN, TRAIN_BATCH,
+                             seed=ctx['seed'])
+    state = state_for(model)
+    tracked = ('layers.0.tm.wr', 'layers.31.cm.wv', 'layers.7.tm.u',
+               'score_head')
+    params = dict(model.named_parameters())
+    before = {k: (params[k].detach().clone(),
+                  state['opt']['mu'][k]['master'].clone()) for k in tracked}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records, total = [], {'wkv_fwd': 0, 'wkv_bwd': 0}
+    prof = None
+    for i in range(n_steps):
+        objective = 'lm' if i < TRAIN_LM_STEPS else 'rank_hinge'
+        raw = (tokens.batch(i) if objective == 'lm' else
+               {k: v for k, v in rewards.batch(i).items()
+                if k in ('tokens', 'utilities')})
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        profiled = i == TRAIN_LM_STEPS - 1      # the last lm step
+        if profiled:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = steps[objective](state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if profiled:
+            prof.__exit__(None, None, None)
+        launches = _counts()
+        for k in total:
+            total[k] += launches[k]
+        rec = dict(step=i + 1, objective=objective, seconds=secs,
+                   profiled=profiled,
+                   **{k: float(v) for k, v in metrics.items()},
+                   wkv_fwd_launches=launches['wkv_fwd'],
+                   wkv_bwd_launches=launches['wkv_bwd'])
+        records.append(rec)
+        check(all(math.isfinite(rec[k]) for k in ('loss', 'gnorm', 'lr')),
+              f'non-finite metrics at step {i + 1}: {rec}')
+        check(launches['wkv_fwd'] == 2 * cfg.n_layers
+              and launches['wkv_bwd'] == cfg.n_layers,
+              f'step {i + 1} launched {launches}; expected '
+              f'{2 * cfg.n_layers} forward and {cfg.n_layers} backward')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = {k: dict(param=bool((params[k] != p0).any()),
+                     master=bool((state['opt']['mu'][k]['master']
+                                  != m0).any()))
+             for k, (p0, m0) in before.items()}
+    check(all(m['master'] for m in moved.values())
+          and all(moved[k]['param'] for k in tracked[:2]),
+          f'the weights did not move: {moved}')
+    lm_secs = sorted(r['seconds'] for r in records if r['objective'] == 'lm')
+    median = lm_secs[len(lm_secs) // 2]
+    busy, n_ops, bwd_us = _device_busy(prof, 'wkv_bwd_kernel')
+    _, _, fwd_us = _device_busy(prof, 'wkv_fwd_kernel')
+    wall_us = 1e6 * records[TRAIN_LM_STEPS - 1]['seconds']
+    res = dict(batch=TRAIN_BATCH, seq=TRAIN_LEN, layers=cfg.n_layers,
+               grad_check=[short, full_depth], grad_bars=GRAD_BARS,
+               grad_fault_bar=GRAD_FAULT_BAR, steps=records,
+               median_lm_step_seconds=median,
+               train_tokens_per_s=TRAIN_BATCH * TRAIN_LEN / median,
+               peak_memory_gib=peak, moved=moved,
+               profile_step=dict(
+                   objective='lm', step=TRAIN_LM_STEPS,
+                   wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                   idle_share=1.0 - busy / wall_us if n_ops else None,
+                   device_ops=n_ops, wkv_bwd_ms=bwd_us / 1e3,
+                   wkv_fwd_ms=fwd_us / 1e3,
+                   wkv_bwd_share_of_device_time=bwd_us / busy if busy
+                   else None,
+                   top_kernels=_top_kernels(prof, k=8)))
+    ctx['launches']['wkv_bwd'] = total['wkv_bwd']
+    ctx['wkv_row']['launches_per_train_step'] = 2 * cfg.n_layers
+    del state, model, params, before, steps, prof
+    torch.cuda.empty_cache()
+    ctx['wkv_bwd_row'] = _wkv_bwd_row(ctx, median, cfg.n_layers)
+    res['wkv_bwd_kernel_ms'] = ctx['wkv_bwd_row']['ms']
+    return res
+
+
+def _wkv_bwd_row(ctx, step_seconds, n_layers):
+    """The backward kernel at the training shape (N = B*H, T, K), as the
+    path calls it (once per layer of a train step): its time, its plain
+    version's, their difference and its bound."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.kernels.wkv import ops as W
+    from repro_torch.kernels.wkv.ref import wkv_backward_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 9)
+    n, t, kk = TRAIN_BATCH * 40, TRAIN_LEN, 64
+    args, chunk = _wkv_bwd_inputs(torch, n, t, kk, torch.bfloat16, dev, g)
+    ms = time_ms(torch, lambda: W._launch_bwd(*args, chunk), reps=5)
+    got = W._launch_bwd(*args, chunk)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    want = wkv_backward_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t_a)
+    errs = _wkv_bwd_compare(torch, got, want)
+    check(errs['all_inside'], f'WKV backward kernel != plain at the '
+          f'training shape: {errs}')
+    # bytes: r, k, v, do and dr, dk, dv bf16, w and dw float32 (N*T*K
+    # each), the boundaries (N*T/chunk*K*K), u, du, dsT and ds0 float32,
+    # each read or written once; operations: about 16 K*V per (n, t) (the
+    # state recompute from the boundaries, dr, dk, dv, dw and the dS update)
+    nt = n * t
+    nbytes = (nt * kk * (7 * 2 + 2 * 4) + 4 * n * (t // chunk) * kk * kk
+              + 2 * 4 * n * kk + 2 * 4 * n * kk * kk)
+    ops = 16 * kk * kk * nt
+    err = max(errs[k]['max_abs_err'] for k in WKV_GRADS)
+    return _row('wkv_bwd', 'src/repro_torch/kernels/csrc/wkv_bwd.cu',
+                'src/repro/kernels/wkv/kernel.py:123',
+                ctx['launches']['wkv_bwd'], err, ms, plain_ms, nbytes, ops,
+                shape=[n, t, kk], errors=errs,
+                launches_per_train_step=n_layers,
+                share_of_train_step_layer=ms * n_layers / (1e3 * step_seconds))
 
 
 def phase_time(ctx):
@@ -677,7 +996,7 @@ def phase_time(ctx):
                                                    n_iter=128), reps=3)
     out['bundle_step'] = _profile_bundle_step(ctx)
     ctx['rows'] = [_rank_counts_row(ctx), _pairwise_row(ctx),
-                   ctx['wkv_row']]
+                   ctx['wkv_row'], ctx['wkv_bwd_row']]
     return out
 
 
@@ -753,9 +1072,10 @@ def _top_kernels(prof, k=6):
 
 
 PHASES = (('build', phase_build), ('parity', phase_parity),
-          ('wkv_parity', phase_wkv_parity), ('main', phase_main),
+          ('wkv_parity', phase_wkv_parity),
+          ('wkv_bwd_parity', phase_wkv_bwd_parity), ('main', phase_main),
           ('auto', phase_auto), ('guard', phase_guard), ('lm', phase_lm),
-          ('time', phase_time))
+          ('train', phase_train), ('time', phase_time))
 
 
 def main(argv=None) -> int:

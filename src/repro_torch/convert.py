@@ -14,6 +14,9 @@ reference's parameter pytree (nested dicts, layers stacked) as float32
 numpy arrays and returns the port's `state_dict` in bf16, for
 `models.lm.from_state_dict`. `lm_cache_from_reference(cache)` carries a
 decode cache, so both packages decode from the same state.
+`train_state_from_reference(state, cfg)` carries a whole train state
+(parameters, AdamW master/m/v and count, step), so both packages take
+the same train step from it.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from .core.bmrm import BundleState
 from .core.ranksvm import RankSVM
 from .kernels.platform import resolve_device
-from .models.lm import state_dict_from_tree
+from .models.lm import from_state_dict, state_dict_from_tree
 
 _DTYPES = {'n_active': torch.int32, 'done': torch.bool}
 
@@ -61,20 +64,54 @@ def from_reference(w, bundle_state=None, *, device=None, **ranksvm_kwargs):
     return svm, state
 
 
-def _tree_to_torch(tree, dev):
-    return {k: (_tree_to_torch(v, dev) if isinstance(v, dict) else
-                torch.as_tensor(np.array(v, np.float32)).to(
-                    dev, torch.bfloat16))
+def _tree_to_torch(tree, dev, dtype=torch.bfloat16):
+    return {k: (_tree_to_torch(v, dev, dtype) if isinstance(v, dict) else
+                torch.as_tensor(np.array(v, np.float32)).to(dev, dtype))
             for k, v in tree.items()}
 
 
-def lm_params_from_reference(tree, *, device=None):
+def lm_params_from_reference(tree, *, device=None, dtype=torch.bfloat16):
     """The port's LM state_dict from the reference's parameter pytree.
 
     Leaves are numpy arrays that read as float32 (a bf16 JAX array cast
-    to float32 first, which is exact); they are cast to bf16 and the
+    to float32 first, which is exact); they are cast to `dtype` and the
     leading layer axis of 'layers' is unstacked."""
-    return state_dict_from_tree(_tree_to_torch(tree, resolve_device(device)))
+    return state_dict_from_tree(_tree_to_torch(tree, resolve_device(device),
+                                               dtype))
+
+
+def train_state_from_reference(state, cfg, *, device=None,
+                               dtype=torch.bfloat16):
+    """The port's train state (`train.trainer`) from the reference's:
+    {'params': tree, 'opt': {'mu': tree of {'master', 'm', 'v'},
+    'count'}, 'step'} with numpy leaves that read as float32 (ints for
+    count and step). The parameters become an `LM` of `cfg` in `dtype`
+    (the reference state's parameter dtype); master, m and v stay
+    float32, keyed by the port's parameter names. Nothing is shared with
+    the arguments."""
+    dev = resolve_device(device)
+    model = from_state_dict(cfg, lm_params_from_reference(
+        state['params'], device=dev, dtype=dtype))
+    mu = {}
+    for part in ('master', 'm', 'v'):
+        tree = _pick(state['opt']['mu'], part)
+        for name, val in state_dict_from_tree(
+                _tree_to_torch(tree, dev, torch.float32)).items():
+            mu.setdefault(name, {})[part] = val.clone()
+
+    def scalar(x):
+        return torch.as_tensor(np.array(x, np.int32), device=dev)
+    return {'params': model,
+            'opt': {'mu': mu, 'count': scalar(state['opt']['count'])},
+            'step': scalar(state['step'])}
+
+
+def _pick(tree, part):
+    """The tree of `part` leaves from a tree whose leaves are
+    {'master', 'm', 'v'} dicts."""
+    if set(tree) == {'master', 'm', 'v'}:
+        return tree[part]
+    return {k: _pick(v, part) for k, v in tree.items()}
 
 
 def lm_cache_from_reference(cache, *, device=None):

@@ -206,6 +206,15 @@ def counts_grouped_fused(p, y, g):
     return counts_fused(pg, yg)
 
 
+def counts_grouped(p, y, g):
+    """(c, d) restricted to within-group pairs: `counts` on the group
+    offset keys, the reference's `counts_grouped`. The same precision
+    note as `counts_grouped_fused` holds."""
+    p, y = _f32(p), _f32(y)
+    pg, yg = _group_offsets(p, y, g)
+    return counts(pg, yg)
+
+
 def counts_blocked_host(p, y, block: int = 2048):
     """O(m^2) pairwise counts with O(m * block) memory (the PairRSVM
     baseline): candidates in blocks of `block`, every query at once."""

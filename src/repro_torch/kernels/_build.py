@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / '.kernel_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-SOURCES = ('pairwise_rank.cu', 'rank_counts.cu', 'wkv_fwd.cu')
+SOURCES = ('pairwise_rank.cu', 'rank_counts.cu', 'wkv_fwd.cu',
+           'wkv_bwd.cu')
 
 
 def _nvcc() -> str:

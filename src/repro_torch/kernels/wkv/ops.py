@@ -1,16 +1,18 @@
-"""Wrappers around the WKV forward kernel (`csrc/wkv_fwd.cu`).
+"""Wrappers around the WKV kernels (`csrc/wkv_fwd.cu`, `csrc/wkv_bwd.cu`).
 
-`wkv_forward` launches the CUDA kernel for tensors on the card and runs
-the plain version (`ref.wkv_forward_plain`) for tensors on the CPU; it
-never falls back from the one to the other. `wkv_apply` is the op the
-RWKV-6 time mix calls.
+`wkv_forward` and `wkv_backward` launch the CUDA kernels for tensors on
+the card and run the plain versions (`ref.wkv_forward_plain`,
+`ref.wkv_backward_plain`) for tensors on the CPU; they never fall back
+from the one to the other. `wkv_apply` is the op the RWKV-6 time mix
+calls: with gradients needed it runs `WKV`, a `torch.autograd.Function`
+(the counterpart of the reference's `jax.custom_vjp` in `_make_wkv`)
+whose forward writes the chunk boundary states and whose backward runs
+the backward kernel from them; without, it writes no boundaries.
 
 Not ported from the reference's `ops.py`: the TPU's `bn` tile of
 sequences per grid step (a block here owns one sequence), and the mesh,
 `shard_map` and `pure_callback` stub of multi-device runs (ROADMAP Queue
-1 item 12). The backward kernel and the autograd function around both
-are the training slice (ROADMAP Queue 1 item 13(b)); until then the op
-is forward-only and refuses inputs that require a gradient.
+1 item 12).
 """
 
 from __future__ import annotations
@@ -18,17 +20,22 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .ref import wkv_forward_plain
+from .ref import wkv_backward_plain, wkv_forward_plain
 
 f32 = torch.float32
 
-# Launcher of the CUDA kernel; `WKV_FWD.launches` counts its launches.
+# Launchers of the CUDA kernels; `.launches` counts each one's launches.
 WKV_FWD = _build.Kernel(
     'wkv_fwd.cu', 'wkv_fwd_launch',
     [_build.PTR] * 9 + [_build.INT] * 5 + [_build.PTR])
+WKV_BWD = _build.Kernel(
+    'wkv_bwd.cu', 'wkv_bwd_launch',
+    [_build.PTR] * 15 + [_build.INT] * 5 + [_build.PTR])
 
-# Head sizes the kernel is instantiated for (threads per block).
+# Head sizes the kernels are instantiated for (threads per block).
 KERNEL_K = (8, 16, 32, 64)
+# Time steps per sub-chunk of the backward kernel (`kSub` in wkv_bwd.cu).
+WKV_BWD_SUB = 4
 IO_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -41,38 +48,40 @@ def _pick_chunk(t: int) -> int:
     return chunk
 
 
-def _check(r, k, v, w, u, s0, chunk):
+def _check(r, k, v, w, u, chunk, extra=()):
+    """Raise on inputs the kernels do not take. `extra` holds (name,
+    tensor, shape, dtype) of the further inputs: s0 for the forward; the
+    boundaries, do and dsT for the backward."""
     n, t, kk = r.shape
-    for name, a, shape in (('k', k, r.shape), ('v', v, r.shape),
-                           ('w', w, r.shape), ('u', u, (n, kk)),
-                           ('s0', s0, (n, kk, kk))):
+    if r.dtype not in IO_DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f'r, k, v must share one dtype of {IO_DTYPES}; got '
+                        f'{r.dtype}, {k.dtype}, {v.dtype}')
+    if chunk <= 0 or t % chunk:
+        raise ValueError(f'chunk {chunk} does not divide T = {t}')
+    for name, a, shape, dtype in (('k', k, r.shape, r.dtype),
+                                  ('v', v, r.shape, r.dtype),
+                                  ('w', w, r.shape, f32),
+                                  ('u', u, (n, kk), f32), *extra):
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f'{name} has shape {tuple(a.shape)}; expected '
                              f'{tuple(shape)}')
         if a.device != r.device:
             raise ValueError(f'{name} is on {a.device} but r on {r.device}')
-    if r.dtype not in IO_DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
-        raise TypeError(f'r, k, v must share one dtype of {IO_DTYPES}; got '
-                        f'{r.dtype}, {k.dtype}, {v.dtype}')
-    for name, a in (('w', w), ('u', u), ('s0', s0)):
-        if a.dtype != f32:
-            raise TypeError(f'{name} must be float32; got {a.dtype}')
-    if chunk <= 0 or t % chunk:
-        raise ValueError(f'chunk {chunk} does not divide T = {t}')
-    if torch.is_grad_enabled() and any(
-            a.requires_grad for a in (r, k, v, w, u, s0)):
-        raise NotImplementedError(
-            'the WKV op is forward-only: its backward kernel and autograd '
-            'function are the training slice (ROADMAP Queue 1 item 13(b)); '
-            'run under torch.no_grad() or use wkv_impl="scan"')
+        if a.dtype != dtype:
+            raise TypeError(f'{name} must be {dtype}; got {a.dtype}')
+
+
+def _check_launch(r):
+    n, t, kk = r.shape
+    if kk not in KERNEL_K:
+        raise ValueError(f'the WKV kernels take K in {KERNEL_K}; got {kk}')
+    if n * t * kk >= 2 ** 31:
+        raise ValueError('N*T*K exceeds the int32 range of the launcher')
 
 
 def _launch(r, k, v, w, u, s0, chunk, boundaries):
     n, t, kk = r.shape
-    if kk not in KERNEL_K:
-        raise ValueError(f'the WKV kernel takes K in {KERNEL_K}; got {kk}')
-    if n * t * kk >= 2 ** 31 or t >= 2 ** 31:
-        raise ValueError('N*T*K exceeds the int32 range of the launcher')
+    _check_launch(r)
     o = torch.empty_like(r)
     sT = torch.empty((n, kk, kk), dtype=f32, device=r.device)
     bnd = (torch.empty((n, t // chunk, kk, kk), dtype=f32, device=r.device)
@@ -95,7 +104,8 @@ def wkv_forward(r, k, v, w, u, s0, *, chunk: int, boundaries: bool = True):
     (N, T/chunk, K, K) float32: the state before each chunk, or None when
     `boundaries` is False). CUDA tensors run the kernel, CPU tensors the
     plain version."""
-    _check(r, k, v, w, u, s0, chunk)
+    n, t, kk = r.shape
+    _check(r, k, v, w, u, chunk, [('s0', s0, (n, kk, kk), f32)])
     r, k, v, w, u, s0 = (a.contiguous() for a in (r, k, v, w, u, s0))
     if r.is_cuda:
         return _launch(r, k, v, w, u, s0, chunk, boundaries)
@@ -105,10 +115,86 @@ def wkv_forward(r, k, v, w, u, s0, *, chunk: int, boundaries: bool = True):
                              boundaries=boundaries)
 
 
+def _launch_bwd(r, k, v, w, u, bnd, do, dsT, chunk):
+    n, t, kk = r.shape
+    _check_launch(r)
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty((n, t, kk), dtype=f32, device=r.device)
+    du = torch.empty((n, kk), dtype=f32, device=r.device)
+    ds0 = torch.empty((n, kk, kk), dtype=f32, device=r.device)
+    # the state at the start of every sub-chunk of the chunk being walked
+    # (the kernel's scratch; `WKV_BWD_SUB` steps per sub-chunk)
+    ckpt = torch.empty((n, -(-chunk // WKV_BWD_SUB), kk, kk), dtype=f32,
+                       device=r.device)
+    if n:
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        with torch.cuda.device(r.device):
+            WKV_BWD(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                    u.data_ptr(), bnd.data_ptr(), do.data_ptr(),
+                    None if dsT is None else dsT.data_ptr(), dr.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                    du.data_ptr(), ds0.data_ptr(), ckpt.data_ptr(), n, t, kk,
+                    chunk, int(r.dtype == torch.bfloat16), stream)
+    return dr, dk, dv, dw, du, ds0
+
+
+def wkv_backward(r, k, v, w, u, boundaries, do, dsT=None, *, chunk: int):
+    """Gradients of (o, sT) = wkv_forward(r, k, v, w, u, s0) against the
+    cotangents do ((N, T, K) in r's dtype) and dsT ((N, K, K) float32, or
+    None for zero), from the chunk `boundaries` (N, T/chunk, K, K) float32
+    that `wkv_forward` wrote.
+
+    Returns (dr, dk, dv in r's dtype, dw (N, T, K), du (N, K), ds0
+    (N, K, K) float32). CUDA tensors run the kernel, CPU tensors the plain
+    version."""
+    n, t, kk = r.shape
+    extra = [('boundaries', boundaries, (n, t // max(chunk, 1), kk, kk), f32),
+             ('do', do, r.shape, r.dtype)]
+    if dsT is not None:
+        extra.append(('dsT', dsT, (n, kk, kk), f32))
+    _check(r, k, v, w, u, chunk, extra)
+    r, k, v, w, u, boundaries, do = (a.contiguous() for a in (
+        r, k, v, w, u, boundaries, do))
+    dsT = None if dsT is None else dsT.contiguous()
+    if r.is_cuda:
+        return _launch_bwd(r, k, v, w, u, boundaries, do, dsT, chunk)
+    if r.device.type != 'cpu':
+        raise ValueError(f'unsupported device {r.device}')
+    return wkv_backward_plain(r, k, v, w, u, boundaries, do, dsT,
+                              chunk=chunk)
+
+
+class WKV(torch.autograd.Function):
+    """(o, sT) = WKV(r, k, v, w, u, s0, chunk) with the backward kernel as
+    its gradient. The forward writes the chunk boundaries for the
+    backward. The backward rounds do to r's dtype, as the reference does,
+    and takes an unused output's cotangent as zero."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, chunk):
+        o, sT, bnd = wkv_forward(r, k, v, w, u, s0, chunk=chunk)
+        ctx.save_for_backward(r, k, v, w, u, bnd)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return o, sT
+
+    @staticmethod
+    def backward(ctx, do, dsT):
+        r, k, v, w, u, bnd = ctx.saved_tensors
+        do = (torch.zeros_like(r) if do is None else do.to(r.dtype))
+        dsT = None if dsT is None else dsT.to(f32)
+        grads = wkv_backward(r, k, v, w, u, bnd, do, dsT, chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def wkv_apply(r, k, v, w, u, s0):
     """WKV over (N, T, K) inputs -> (o in r's dtype, sT float32), with the
-    reference's chunk rule. Nothing reads the boundary states in a
-    forward-only run, so none are written."""
-    o, sT, _ = wkv_forward(r, k, v, w, u, s0, chunk=_pick_chunk(r.shape[1]),
-                           boundaries=False)
+    reference's chunk rule. When autograd is on and some input needs a
+    gradient it runs through `WKV` (boundaries written, differentiable
+    through the backward kernel); otherwise it writes no boundaries."""
+    chunk = _pick_chunk(r.shape[1])
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (r, k, v, w, u, s0)):
+        return WKV.apply(r, k, v, w, u, s0, chunk)
+    o, sT, _ = wkv_forward(r, k, v, w, u, s0, chunk=chunk, boundaries=False)
     return o, sT

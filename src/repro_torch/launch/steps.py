@@ -1,17 +1,20 @@
-"""Step builders and input specs for the RWKV-6 serving cells.
+"""Step builders and input specs for the RWKV-6 cells: train, prefill
+and decode.
 
-The port of the reference's `launch/steps.py`, prefill and decode only:
-the train step (`make_step` for 'train') is the training slice (ROADMAP
-Queue 1 item 13(b)). Specs are `TensorSpec`s (shape, dtype), the
-counterpart of the reference's ShapeDtypeStructs.
+The port of the reference's `launch/steps.py` for the token frontend.
+`make_step(cfg, shape, tcfg)` returns the step of the cell's kind (the
+train step of `train.trainer`, or a serving step) with its input specs.
+Specs are `TensorSpec`s (shape, dtype), the counterpart of the
+reference's ShapeDtypeStructs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..configs.base import ModelConfig, ShapeConfig
+from ..configs.base import ModelConfig, ShapeConfig, TrainConfig
 from ..models import lm as LM
+from ..train.trainer import make_train_step
 
 i32 = torch.int32
 
@@ -54,3 +57,23 @@ def make_decode_step(cfg: ModelConfig):
     def decode_step(params, cache, batch, pos):
         return LM.forward_decode(params, cfg, cache, batch, pos)
     return decode_step
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    if shape.kind == 'train':
+        return train_batch_specs(cfg, shape)
+    if shape.kind == 'prefill':
+        return prefill_batch_specs(cfg, shape)
+    return decode_batch_specs(cfg, shape)
+
+
+def make_step(cfg: ModelConfig, shape: ShapeConfig,
+              tcfg: TrainConfig | None = None):
+    """(step_fn, example-argument specs) for the cell; the arguments
+    exclude the parameters or the train state."""
+    if shape.kind == 'train':
+        return make_train_step(cfg, tcfg or TrainConfig()), input_specs(
+            cfg, shape)
+    if shape.kind == 'prefill':
+        return make_prefill_step(cfg), input_specs(cfg, shape)
+    return make_decode_step(cfg), input_specs(cfg, shape)

@@ -11,10 +11,14 @@ and `state_dict_from_tree` unstacks a stacked tree into the port's
 
 The forwards take the model where the reference takes its parameter
 tree, and the config separately, so that one set of weights can run
-either WKV route. Prefill and decode are serving entry points and run
-without autograd. The decode cache keeps the reference's stacked layout:
-'s' (L, B, H, K, K) float32, 'tm_last' and 'cm_last' (L, B, d) bf16, the
-last token of each layer's normed inputs.
+either WKV route. `forward_train` runs under autograd, each layer
+checkpointed (`remat='layer'`, the reference's `jax.checkpoint` of its
+scanned layer) so that only the layer boundaries are kept for the
+backward; `chunked_xent` is the LM loss over it. Prefill and decode are
+serving entry points and run without autograd. The decode cache keeps
+the reference's stacked layout: 's' (L, B, H, K, K) float32, 'tm_last'
+and 'cm_last' (L, B, d) bf16, the last token of each layer's normed
+inputs.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import collections
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.platform import full_f32, resolve_device
 from . import rwkv6 as R
@@ -143,15 +148,15 @@ def from_state_dict(cfg, state_dict) -> LM:
     return model
 
 
-def init_model(cfg, seed: int = 0, device=None) -> LM:
+def init_model(cfg, seed: int = 0, device=None, dtype=bf16) -> LM:
     """An `LM` with the reference's initialization (`init_params` over
-    `model_defs(cfg)`, bf16) drawn from a `torch.Generator` seeded with
-    `seed` on `device` (default: the CUDA device)."""
+    `model_defs(cfg)`, in `dtype`) drawn from a `torch.Generator` seeded
+    with `seed` on `device` (default: the CUDA device)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return from_state_dict(cfg, state_dict_from_tree(
-        init_params(model_defs(cfg), gen)))
+        init_params(model_defs(cfg), gen, dtype)))
 
 
 # ------------------------------------------------------------- cache
@@ -202,15 +207,50 @@ def _last_logits(params, cfg, x):
     return x[:, -1].to(bf16).to(f32) @ lm_head_weight(params, cfg).to(f32)
 
 
-def forward_train(params, cfg, batch):
-    """Full causal forward -> final hidden states (B, S, d) bf16. Forward
-    only: through the WKV kernel route it needs autograd off (the
-    backward is the training slice)."""
+def _layer_out(lp, cfg, x):
+    return _rwkv_layer(lp, cfg, x)[0]
+
+
+def forward_train(params, cfg, batch, remat: str = 'layer'):
+    """Full causal forward -> final hidden states (B, S, d), bf16 for bf16
+    weights. With autograd on and remat='layer', each layer runs under
+    `torch.utils.checkpoint` (non-reentrant): its activations are
+    recomputed in the backward, so the forward keeps only each layer's
+    input. remat='none' keeps every activation."""
+    if remat not in ('none', 'layer'):
+        raise ValueError(f"remat must be 'none' or 'layer'; got {remat!r}")
     with full_f32():
         x = _embed_tokens(params, cfg, batch['tokens']).to(bf16)
         for lp in params.layers:
-            x, _, _, _ = _rwkv_layer(lp, cfg, x)
+            if remat == 'layer' and torch.is_grad_enabled():
+                x = checkpoint(_layer_out, lp, cfg, x, use_reentrant=False)
+            else:
+                x = _layer_out(lp, cfg, x)
         return rmsnorm(params.ln_f, x)
+
+
+def chunked_xent(params, cfg, hidden, targets, chunk: int = 512):
+    """Mean next-token cross-entropy over the valid targets (0 <= t <
+    vocab), in chunks of `chunk` positions (the reference's rule: the
+    positions past the last whole chunk are dropped). Each chunk's logits
+    are float32 products of the bf16 hidden states and head (exact
+    products, float32 sums); the target logit is picked with `gather`,
+    which equals the reference's one-hot sum for finite logits."""
+    b, s, _ = hidden.shape
+    w = lm_head_weight(params, cfg).to(f32)
+    chunk = min(chunk, s)
+    tot = torch.zeros((), dtype=f32, device=hidden.device)
+    cnt = torch.zeros((), dtype=f32, device=hidden.device)
+    with full_f32():
+        for c0 in range(0, (s // chunk) * chunk, chunk):
+            t = targets[:, c0:c0 + chunk].long()
+            logits = hidden[:, c0:c0 + chunk].to(f32) @ w
+            lse = torch.logsumexp(logits, dim=-1)
+            tl = logits.gather(-1, t.clamp(0, logits.shape[-1] - 1)[..., None])
+            valid = (t >= 0) & (t < cfg.vocab)
+            tot = tot + torch.where(valid, lse - tl[..., 0], 0.0).sum()
+            cnt = cnt + valid.sum()
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 @torch.no_grad()

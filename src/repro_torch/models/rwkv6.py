@@ -9,14 +9,17 @@ w_t = exp(-exp(w0 + tanh(x A) B))) and the recurrence keeps a per-head
 
 Two routes compute the recurrence, chosen as in the reference:
 `cfg.wkv_impl == 'kernel'` with more than one token sends it to the WKV
-op (`kernels/wkv`: the CUDA kernel for tensors on the card, its plain
-version on the CPU), which streams r, k, v in their dtype (bf16 on the
-model path) and returns o rounded to it; otherwise (`'scan'`, and every
-one-token decode step) `_wkv_scan` runs it in float32 step by step.
+op (`kernels/wkv`: the CUDA kernels for tensors on the card, their plain
+versions on the CPU), which streams r, k, v in their dtype (bf16 on the
+model path), returns o rounded to it, and differentiates through the
+backward kernel; otherwise (`'scan'`, and every one-token decode step)
+`_wkv_scan` runs it in float32 step by step, under autograd.
 
 Each block is an `nn.Module` whose parameters carry the reference's keys;
 the forward functions take the module where the reference takes its
-parameter dict.
+parameter dict. Matrix products promote their operands to a common
+dtype, as the reference's einsums do, so float32 weights run on bf16
+activations.
 """
 
 from __future__ import annotations
@@ -67,6 +70,12 @@ def rwkv_defs(cfg):
     }
 
 
+def _mm(a, b):
+    """a @ b in the promoted dtype of the two (jnp.einsum's rule)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def _token_shift(x, last):
     """Shift right by one along T; `last` (B, d) fills position 0."""
     return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
@@ -104,21 +113,22 @@ def rwkv_time_mix(p, cfg, x, *, state=None, shift_last=None):
     xw = _lerp(x, xs, p.mu_w)
     xg = _lerp(x, xs, p.mu_g)
 
-    r = (xr @ p.wr).reshape(b, t, h, hd)
-    k = (xk @ p.wk).reshape(b, t, h, hd)
-    v = (xv @ p.wv).reshape(b, t, h, hd)
-    g = F.silu(xg @ p.wg)
+    r = _mm(xr, p.wr).reshape(b, t, h, hd)
+    k = _mm(xk, p.wk).reshape(b, t, h, hd)
+    v = _mm(xv, p.wv).reshape(b, t, h, hd)
+    g = F.silu(_mm(xg, p.wg))
 
     # data-dependent decay in (0, 1): w = exp(-exp(w0 + tanh(x wa) wb));
     # w0 + dd is summed in the weights' dtype, then raised to float32
-    dd = torch.tanh(xw @ p.wa) @ p.wb
+    dd = _mm(torch.tanh(_mm(xw, p.wa)), p.wb)
     w = torch.exp(-torch.exp((p.w0 + dd).to(f32))).reshape(b, t, h, hd)
 
     s0 = (torch.zeros((b, h, hd, hd), dtype=f32, device=x.device)
           if state is None else state.to(f32))
     if cfg.wkv_impl == 'kernel' and t > 1:
         # (B, T, H, K) -> (B*H, T, K), batch the leading factor of N.
-        # r/k/v/o stream in their dtype; the decay w stays float32.
+        # r/k/v/o stream in their dtype; the decay w stays float32. u is
+        # broadcast per sequence, so autograd sums du back to (H, K).
         def flat(a):
             return a.permute(0, 2, 1, 3).reshape(b * h, t, hd)
         u_flat = p.u.to(f32)[None].expand(b, h, hd).reshape(b * h, hd)
@@ -134,7 +144,7 @@ def rwkv_time_mix(p, cfg, x, *, state=None, shift_last=None):
     o = (o - o.mean(-1, keepdim=True)) * torch.rsqrt(
         o.var(-1, keepdim=True, correction=0) + 1e-5)
     o = o.reshape(b, t, h * hd).to(x.dtype) * p.ln_scale * g
-    return o @ p.wo, sT, x[:, -1, :]
+    return _mm(o, p.wo), sT, x[:, -1, :]
 
 
 def rwkv_channel_mix(p, cfg, x, *, shift_last=None):
@@ -144,9 +154,9 @@ def rwkv_channel_mix(p, cfg, x, *, shift_last=None):
     xs = _token_shift(x, shift_last)
     xk = _lerp(x, xs, p.mu_k)
     xr = _lerp(x, xs, p.mu_r)
-    k = torch.square(F.relu(xk @ p.wk))
-    kv = k @ p.wv
-    r = torch.sigmoid(xr @ p.wr)
+    k = torch.square(F.relu(_mm(xk, p.wk)))
+    kv = _mm(k, p.wv)
+    r = torch.sigmoid(_mm(xr, p.wr))
     return r * kv, x[:, -1, :]
 
 

@@ -1,8 +1,9 @@
 """The port on the card: each CUDA kernel against its plain torch version
-(the counting kernels bit for bit; the WKV kernel's states bit for bit
-and its o within the tolerances below), a fit on the card against the
-same fit on the CPU, and the reduced RWKV-6 prefill on the card against
-the CPU.
+(the counting kernels bit for bit; the WKV forward kernel's states and
+the backward kernel's ds0 bit for bit, their other outputs within the
+tolerances below), a fit on the card against the same fit on the CPU,
+and the reduced RWKV-6 prefill and train step on the card against the
+CPU.
 
 Every test here needs a CUDA device (Hopper, for the sm_90a kernels) and
 is marked `cuda`; without one it skips. This module imports neither JAX
@@ -27,7 +28,8 @@ from repro_torch.kernels.rank_counts.ref import (  # noqa: E402
     rank_counts_plain)
 from repro_torch.configs.reduced import reduced  # noqa: E402
 from repro_torch.kernels.wkv import ops as W  # noqa: E402
-from repro_torch.kernels.wkv.ref import wkv_forward_plain  # noqa: E402
+from repro_torch.kernels.wkv.ref import (  # noqa: E402
+    wkv_backward_plain, wkv_forward_plain)
 from repro_torch.models import lm as LM  # noqa: E402
 from torch_parity import cuda_device, torch_one_thread  # noqa: E402,F401
 
@@ -126,6 +128,63 @@ def test_wkv_kernel_matches_plain(dtype, kk, tt, cuda_device):
     assert bool(((of - opf).abs() <= tol).all())
 
 
+def _within(got, want, rel=1e-4):
+    """got within `rel` of want's scale, plus one ulp of each value where
+    got is bf16 (a float32 sum in another order can flip one rounding)."""
+    g, wf = got.float(), want.float()
+    tol = rel * float(wf.abs().max())
+    if got.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** (torch.floor(torch.log2(
+            wf.abs().clamp_min(1e-30))) - 7)
+    return bool(((g - wf).abs() <= tol).all())
+
+
+@pytest.mark.parametrize('tt', [128, 100])
+@pytest.mark.parametrize('kk', [8, 16, 32, 64])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_wkv_backward_kernel_matches_plain(dtype, kk, tt, cuda_device):
+    """The backward kernel rounds each product and sum of the state and dS
+    updates as the plain version does, so ds0 is bit-equal; dr, dk, dv,
+    dw and du differ in the order of their K-term sums: 1e-4 of each
+    output's scale, plus one ulp where the output is bf16. T = 100 gives
+    chunk 4 (one sub-chunk per chunk); T = 128 chunk 64."""
+    r, k, v, w, u, s0 = _wkv_case(6, tt, kk, dtype, cuda_device, seed=1)
+    chunk = W._pick_chunk(tt)
+    _, _, bnd = W.wkv_forward(r, k, v, w, u, s0, chunk=chunk)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(kk + tt)
+    do = torch.randn(r.shape, generator=g, device=cuda_device).to(dtype)
+    dsT = torch.randn(s0.shape, generator=g, device=cuda_device)
+    before = W.WKV_BWD.launches
+    got = W.wkv_backward(r, k, v, w, u, bnd, do, dsT, chunk=chunk)
+    want = wkv_backward_plain(r, k, v, w, u, bnd, do, dsT, chunk=chunk)
+    torch.cuda.synchronize()
+    assert W.WKV_BWD.launches == before + 1
+    for name, a, b in zip(('dr', 'dk', 'dv', 'dw', 'du', 'ds0'), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _within(a, b), name
+    assert torch.equal(got[5], want[5])
+
+
+def test_wkv_apply_backward_on_the_card_matches_the_cpu(cuda_device):
+    """Gradients of sum(o^2) through the autograd function: one forward
+    launch with boundaries and one backward launch, and the same
+    gradients as the plain versions give on the CPU, within the bars
+    above."""
+    args = _wkv_case(4, 64, 64, torch.float32, cuda_device, seed=2)
+    fwd, bwd = W.WKV_FWD.launches, W.WKV_BWD.launches
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    o, _ = W.wkv_apply(*leaves)
+    got = torch.autograd.grad((o * o).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (W.WKV_FWD.launches, W.WKV_BWD.launches) == (fwd + 1, bwd + 1)
+    leaves = [a.cpu().clone().requires_grad_(True) for a in args]
+    o, _ = W.wkv_apply(*leaves)
+    want = torch.autograd.grad((o * o).sum(), leaves)
+    for a, b in zip(got, want):
+        assert _within(a.cpu(), b)
+
+
 def test_wkv_apply_on_the_card_writes_no_boundaries(cuda_device):
     args = _wkv_case(4, 64, 64, torch.bfloat16, cuda_device)
     before = W.WKV_FWD.launches
@@ -159,3 +218,41 @@ def test_rwkv_prefill_on_the_card_matches_the_cpu(impl, cuda_device):
     for a, b in ((lg, lg_c), (cache['s'], cache_c['s'])):
         assert float((a.cpu() - b).abs().max()) <= 0.05 * float(
             b.abs().max())
+
+
+@pytest.mark.parametrize('objective', ['lm', 'rank_hinge'])
+def test_train_step_on_the_card_matches_the_cpu(objective, cuda_device):
+    """One train step of reduced RWKV-6 (kernel route, remat='layer') from
+    the same state on both devices: each layer launches the forward
+    kernel twice (forward and recompute) and the backward kernel once;
+    loss within 2e-3 and gnorm within 2e-2 relative (bf16 activations,
+    rounded in another order by the card's matmuls)."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import RewardPipeline, TokenPipeline
+    from repro_torch.data import TokenPipelineConfig
+    from repro_torch.train.trainer import make_train_step, state_for
+    cfg = dataclasses.replace(reduced('rwkv6-3b'), wkv_impl='kernel')
+    tcfg = TrainConfig(objective=objective, warmup_steps=0)
+    if objective == 'lm':
+        raw = TokenPipeline(TokenPipelineConfig(cfg.vocab, 64, 16)).batch(0)
+    else:
+        raw = RewardPipeline(cfg.vocab, 64, 16).batch(0)
+        raw.pop('groups', None)
+    metrics = {}
+    for dev in ('cpu', cuda_device):
+        model = LM.init_model(cfg, seed=0, device='cpu')
+        model = LM.from_state_dict(cfg, {k: v.to(dev) for k, v in
+                                         model.state_dict().items()})
+        state = state_for(model)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        fwd, bwd = W.WKV_FWD.launches, W.WKV_BWD.launches
+        _, m = make_train_step(cfg, tcfg)(state, batch)
+        metrics[str(dev)] = {k: float(v) for k, v in m.items()}
+        if dev != 'cpu':
+            torch.cuda.synchronize()
+            assert W.WKV_FWD.launches - fwd == 2 * cfg.n_layers
+            assert W.WKV_BWD.launches - bwd == cfg.n_layers
+    cpu, card = metrics['cpu'], metrics[str(cuda_device)]
+    assert abs(card['loss'] - cpu['loss']) <= 2e-3 * abs(cpu['loss'])
+    assert abs(card['gnorm'] - cpu['gnorm']) <= 2e-2 * cpu['gnorm']

@@ -171,9 +171,35 @@ def test_port_imports_neither_jax_nor_the_reference():
             'repro_torch.models.lm, repro_torch.models.rwkv6, '
             'repro_torch.models.layers, repro_torch.models.params, '
             'repro_torch.launch.steps, repro_torch.kernels.wkv.ops, '
-            'repro_torch.kernels.wkv.ref; '
+            'repro_torch.kernels.wkv.ref, repro_torch.optim.adamw, '
+            'repro_torch.optim.schedules, repro_torch.train.trainer, '
+            'repro_torch.data.tokens, repro_torch.launch.train, '
+            'repro_torch.core.rank_loss; '
             "assert 'jax' not in sys.modules, 'the port pulled in jax'; "
             "assert 'repro' not in sys.modules, "
             "'the port pulled in the JAX package'")
     subprocess.run([sys.executable, '-c', code, src], check=True,
                    timeout=120)
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    """Every import in chip_smoke.py (its phases import lazily) names
+    neither jax nor the JAX package; without a card it exits non-zero
+    and prints no result."""
+    import ast
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
+    path = os.path.join(root, 'chip_smoke.py')
+    names = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or '')
+    assert 'repro_torch.train.trainer' in names
+    for name in names:
+        top = name.split('.')[0]
+        assert top not in ('jax', 'jaxlib', 'repro'), name
+    if not torch.cuda.is_available():
+        proc = subprocess.run([sys.executable, path], capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode != 0 and '"ok": true' not in proc.stdout

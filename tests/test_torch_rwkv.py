@@ -33,7 +33,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import rwkv6_3b as j_rwkv6_3b  # noqa: E402
-from repro.configs.base import PREFILL_32K, DECODE_32K  # noqa: E402
+from repro.configs.base import (DECODE_32K, PREFILL_32K,  # noqa: E402
+                                TRAIN_4K)
 from repro.configs.reduced import reduced as j_reduced  # noqa: E402
 from repro.distributed.sharding import NoSharding  # noqa: E402
 from repro.launch import steps as JS  # noqa: E402
@@ -257,25 +258,38 @@ def test_module_forwards_are_the_functions(pair):
             assert torch.equal(got, want)
 
 
-def test_kernel_route_is_forward_only(pair):
-    """With autograd on, the kernel route refuses (the backward kernel is
-    the training slice); the scan route runs through autograd."""
+def test_kernel_route_trains_like_the_scan_route(pair):
+    """With autograd on, the kernel route runs through the WKV autograd
+    function, with and without remat, and its gradients of the hidden
+    states' sum agree with the scan route's as the JAX package's routes
+    agree at this width (tools/rwkv_grad_gap.py: under 6% in relative
+    norm per leaf at 2 layers, d = 256): within 15% per leaf."""
     _, model, _ = pair
-    toks = t(_tokens(15, s=8))
-    _, ck = _cfgs('kernel')
-    with pytest.raises(NotImplementedError, match='13\\(b\\)'):
-        LM.forward_train(model, ck, {'tokens': toks})
-    _, cs = _cfgs('scan')
-    assert LM.forward_train(model, cs, {'tokens': toks}).requires_grad
+    toks = t(_tokens(15, s=16))
+    params = dict(model.named_parameters())
+    grads = {}
+    for impl, remat in (('kernel', 'layer'), ('kernel', 'none'),
+                        ('scan', 'layer')):
+        _, c = _cfgs(impl)
+        hid = LM.forward_train(model, c, {'tokens': toks}, remat=remat)
+        assert hid.requires_grad
+        grads[impl, remat] = torch.autograd.grad(
+            hid.float().sum(), list(params.values()), allow_unused=True,
+            materialize_grads=True)
+    for a, b in zip(grads['kernel', 'layer'], grads['kernel', 'none']):
+        assert torch.equal(a, b)
+    for name, a, b in zip(params, grads['kernel', 'layer'],
+                          grads['scan', 'layer']):
+        a, b = a.float(), b.float()
+        if b.norm() > 0:
+            assert float((a - b).norm() / b.norm()) < 0.15, name
 
 
 def test_input_specs_match_reference():
     cfg, jcfg = registry.get('rwkv6-3b'), j_rwkv6_3b.config()
-    for shape in (PREFILL_32K, DECODE_32K):
-        j_specs = (JS.prefill_batch_specs(jcfg, shape) if shape.kind ==
-                   'prefill' else JS.decode_batch_specs(jcfg, shape))
-        specs = (TS.prefill_batch_specs(cfg, shape) if shape.kind ==
-                 'prefill' else TS.decode_batch_specs(cfg, shape))
+    for shape in (TRAIN_4K, PREFILL_32K, DECODE_32K):
+        j_specs = JS.input_specs(jcfg, shape)
+        specs = TS.input_specs(cfg, shape)
         j_flat = {'/'.join(str(getattr(k, 'key', k)) for k in path):
                   (tuple(v.shape), str(v.dtype))
                   for path, v in jax.tree_util.tree_flatten_with_path(
