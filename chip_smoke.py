@@ -69,8 +69,10 @@ line; any failure ends the run with a non-zero exit code:
            move, and each step must launch the WKV forward kernel 64 times
            (forward and remat recompute) and the backward kernel 32
            times. Prints train tokens/s, seconds per step, peak device
-           memory, a profiler window over the last lm step, and the
-           backward kernel's time at the training shape.
+           memory, a profiler window over the last lm step (with the WKV
+           kernels' share of its device time), and both WKV kernels' times
+           at the training shape (N = 160; the forward writing
+           boundaries).
 10. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
@@ -79,7 +81,10 @@ line; any failure ends the run with a non-zero exit code:
 Then the card's name and power limit (nvidia-smi), one line
 {"kernels": [...]} with each kernel's time, its plain version's time,
 its bound (the larger of its bytes at 3.35 TB/s and its operations at
-67 TFLOP/s) and its launches on its main path, and last
+67 TFLOP/s) and its launches on its main path (the WKV rows also with
+their launch geometry as the kernels report it: C blocks per sequence,
+R threads per column or row, steps per stage, and the backward's steps
+between checkpoints), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -721,16 +726,18 @@ def phase_lm(ctx):
     check(errs['o_inside'] and errs['sT_rel_err'] <= 1e-5,
           f'WKV kernel != plain at the prefill shape: {errs}')
     # bytes: r, k, v, o bf16 and w float32 (N*T*K each), u, s0 and sT
-    # float32, each read or written once; operations: about 6 K*V per
-    # (n, t) (the o matvec and bonus, the state decay and update)
+    # float32, each read or written once; operations: 5 K*K per (n, t):
+    # 2 for o's products and sums, 3 for the state's decay, product and
+    # sum (the bonus is O(K) per step, through sum_k r u k)
     nt = n * LM_PROMPT
     nbytes = nt * kk * (2 * 4 + 4) + 4 * n * kk + 2 * 4 * n * kk * kk
-    ops = 6 * kk * kk * nt
+    ops = 5 * kk * kk * nt
     ctx['wkv_row'] = _row(
         'wkv_fwd', 'src/repro_torch/kernels/csrc/wkv_fwd.cu',
         'src/repro/kernels/wkv/kernel.py:49', ctx['launches']['wkv_fwd'],
         errs['o_max_abs_err'], ms, plain_ms, nbytes, ops,
-        shape=[n, LM_PROMPT, kk], ms_with_boundaries=ms_bnd,
+        shape=[n, LM_PROMPT, kk], geometry=W.fwd_geometry(kk),
+        ms_with_boundaries=ms_bnd,
         launches_per_prefill=ctx['launches']['wkv_fwd'],
         share_of_prefill_layer=ms / (1e3 * pre_s / cfg.n_layers))
     res['wkv_kernel_ms'] = ms
@@ -918,14 +925,58 @@ def phase_train(ctx):
                    wkv_fwd_ms=fwd_us / 1e3,
                    wkv_bwd_share_of_device_time=bwd_us / busy if busy
                    else None,
+                   wkv_share_of_device_time=(bwd_us + fwd_us) / busy
+                   if busy else None,
                    top_kernels=_top_kernels(prof, k=8)))
     ctx['launches']['wkv_bwd'] = total['wkv_bwd']
     ctx['wkv_row']['launches_per_train_step'] = 2 * cfg.n_layers
     del state, model, params, before, steps, prof
     torch.cuda.empty_cache()
     ctx['wkv_bwd_row'] = _wkv_bwd_row(ctx, median, cfg.n_layers)
+    ctx['wkv_row']['at_train_shape'] = _wkv_fwd_train_shape(ctx)
     res['wkv_bwd_kernel_ms'] = ctx['wkv_bwd_row']['ms']
+    res['wkv_fwd_kernel_ms_train_shape'] = ctx['wkv_row'][
+        'at_train_shape']['ms']
     return res
+
+
+def _wkv_fwd_train_shape(ctx):
+    """The forward kernel at the training shape (N = B*H = 160, T, K),
+    writing boundaries, as the train step calls it (twice per layer):
+    its time, its plain version's, its bound and its geometry. Goes into
+    the forward kernel's row as `at_train_shape`."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.kernels.wkv import ops as W
+    from repro_torch.kernels.wkv.ref import wkv_forward_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 10)
+    n, t, kk = TRAIN_BATCH * 40, TRAIN_LEN, 64
+    args = _wkv_inputs(torch, n, t, kk, torch.bfloat16, dev, g)
+    chunk = W._pick_chunk(t)
+    ms = time_ms(torch, lambda: W._launch(*args, chunk, True), reps=10)
+    got = W._launch(*args, chunk, True)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    want = wkv_forward_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t_a)
+    errs = _wkv_compare(torch, got, want)
+    check(errs['o_inside'] and errs['states_bit_equal'],
+          f'WKV kernel != plain at the training shape: {errs}')
+    # bytes: as at the prefill shape, plus the boundaries (N*T/chunk*K*K
+    # float32) written once; operations: 5 K*K per (n, t), as there
+    nt = n * t
+    nbytes = (nt * kk * (2 * 4 + 4) + 4 * n * kk + 2 * 4 * n * kk * kk
+              + 4 * n * (t // chunk) * kk * kk)
+    ops = 5 * kk * kk * nt
+    row = _row('wkv_fwd', '', '', 0, errs['o_max_abs_err'], ms, plain_ms,
+               nbytes, ops)
+    return dict(shape=[n, t, kk], boundaries=True,
+                geometry=W.fwd_geometry(kk),
+                **{k: row[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                       'bound_by', 'max_abs_err', 'bytes',
+                                       'operations')},
+                states_bit_equal=errs['states_bit_equal'])
 
 
 def _wkv_bwd_row(ctx, step_seconds, n_layers):
@@ -951,17 +1002,19 @@ def _wkv_bwd_row(ctx, step_seconds, n_layers):
           f'training shape: {errs}')
     # bytes: r, k, v, do and dr, dk, dv bf16, w and dw float32 (N*T*K
     # each), the boundaries (N*T/chunk*K*K), u, du, dsT and ds0 float32,
-    # each read or written once; operations: about 16 K*V per (n, t) (the
-    # state recompute from the boundaries, dr, dk, dv, dw and the dS update)
+    # each read or written once; operations: 14 K*K per (n, t): 3 for
+    # one recompute of the state from the boundaries (decay, product,
+    # sum), 2 each for the products and sums of dr, dk, dv and dw, and 3
+    # for the dS update (the u terms are O(K) per step)
     nt = n * t
     nbytes = (nt * kk * (7 * 2 + 2 * 4) + 4 * n * (t // chunk) * kk * kk
               + 2 * 4 * n * kk + 2 * 4 * n * kk * kk)
-    ops = 16 * kk * kk * nt
+    ops = 14 * kk * kk * nt
     err = max(errs[k]['max_abs_err'] for k in WKV_GRADS)
     return _row('wkv_bwd', 'src/repro_torch/kernels/csrc/wkv_bwd.cu',
                 'src/repro/kernels/wkv/kernel.py:123',
                 ctx['launches']['wkv_bwd'], err, ms, plain_ms, nbytes, ops,
-                shape=[n, t, kk], errors=errs,
+                shape=[n, t, kk], geometry=W.bwd_geometry(kk), errors=errs,
                 launches_per_train_step=n_layers,
                 share_of_train_step_layer=ms * n_layers / (1e3 * step_seconds))
 

@@ -309,8 +309,9 @@ def make_counter(y, g, engine: str = 'tree', block: int = 2048):
       'pallas'   the hand-written rank-counts kernel
                  (`kernels.rank_counts.rank_counter`); the name is the
                  reference's, so both packages take the same call
-      'auto'     `kernels.pairwise_rank.auto_counter`: the pairwise kernel
-                 up to KERNEL_MAX_M examples, the rank-counts kernel above
+      'auto'     `kernels.pairwise_rank.auto_counter`: on the card the
+                 pairwise kernel up to KERNEL_MAX_M examples, the
+                 rank-counts kernel above; off the card the tree
 
     Grouped counting applies the key-offset trick (`_group_offsets`): the
     utility keys are made here, the score keys on each call. What depends

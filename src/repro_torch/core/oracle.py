@@ -310,8 +310,9 @@ def make_oracle(X, y, groups=None, method: str = 'tree', *,
       method   oracle           counting engine (overridable by engine=)
       'tree'   TreeOracle       merge-sort tree
       'pairs'  PairwiseOracle   blocked O(m^2)
-      'auto'   PairwiseOracle   counts_auto: pairwise kernel to
-                                KERNEL_MAX_M examples, rank-counts above
+      'auto'   PairwiseOracle   counts_auto: on the card the pairwise
+                                kernel to KERNEL_MAX_M examples,
+                                rank-counts above; the tree elsewhere
 
     `groups=` routes all three through GroupedOracle with the same
     engine. `engine=` is one of `counts.ENGINES`; 'pallas' is the

@@ -120,6 +120,20 @@ class Kernel:
             self._fn = fn
         return self._fn
 
+    def query(self, symbol: str, *ints) -> list:
+        """Call the library's `int symbol(int..., int* out)`, which fills
+        `out` with ints describing the kernel (its launch geometry), and
+        return them; raises when it returns an error. Not a launch."""
+        self._load()
+        out = (ctypes.c_int * 8)()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = [INT] * len(ints) + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        err = fn(*ints, out)
+        if err != 0:
+            raise RuntimeError(f'{symbol}{ints}: error {err}')
+        return list(out)
+
     def __call__(self, *args) -> None:
         err = self._load()(*args)
         if err != 0:

@@ -3,7 +3,8 @@
 `pairwise_counts` launches the CUDA kernel for tensors on the card and
 runs the plain version (`ref.pairwise_counts_plain`) for tensors on the
 CPU; it never falls back from the one to the other. `auto_counter` is
-the tiering behind `counts_dispatch(engine='auto')`.
+the dispatch behind `counts_dispatch(engine='auto')`: the tiering of the
+two kernels on the card, the merge-sort tree elsewhere.
 """
 
 from __future__ import annotations
@@ -64,13 +65,27 @@ def pairwise_rank_loss(p: torch.Tensor, y: torch.Tensor, n_pairs):
     return ((cf - df) * p.to(torch.float32) + cf).sum() / n_pairs
 
 
+def auto_route(m: int, device) -> str:
+    """The engine `engine='auto'` takes for m examples on `device`.
+
+    On the card: 'pairwise' (the O(m^2) kernel) up to KERNEL_MAX_M
+    examples, 'rank_counts' (the rank-counts kernel, with its exactness
+    guard) above. Elsewhere: 'tree', the merge-sort pass `counts_fused`,
+    as the reference's `counts_auto` does off the TPU (its kernels run
+    there only through the Pallas interpreter, which does not pay)."""
+    if torch.device(device).type != 'cuda':
+        return 'tree'
+    return 'pairwise' if m <= KERNEL_MAX_M else 'rank_counts'
+
+
 def auto_counter(y: torch.Tensor):
-    """`p -> (c, d)` for the fixed utilities y, with the tiering of
-    `counts_dispatch(engine='auto')` chosen once: the pairwise kernel up
-    to KERNEL_MAX_M examples, the rank-counts kernel (with its exactness
-    guard) above. On CPU tensors both run their plain versions, so the
-    tiering itself is what the CPU tests see."""
-    if y.shape[0] <= KERNEL_MAX_M:
+    """`p -> (c, d)` for the fixed utilities y, by the engine that
+    `auto_route` picks for y's length and device, chosen once."""
+    route = auto_route(y.shape[0], y.device)
+    if route == 'tree':
+        from ...core import counts as _tree
+        return lambda p: _tree.counts_fused(p, y)
+    if route == 'pairwise':
         return lambda p: pairwise_counts(p, y)
     return _rc_ops.rank_counter(y)
 

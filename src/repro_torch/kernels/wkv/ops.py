@@ -10,7 +10,8 @@ whose forward writes the chunk boundary states and whose backward runs
 the backward kernel from them; without, it writes no boundaries.
 
 Not ported from the reference's `ops.py`: the TPU's `bn` tile of
-sequences per grid step (a block here owns one sequence), and the mesh,
+sequences per grid step (here each sequence is split over blocks
+instead: `fwd_geometry`, `bwd_geometry`), and the mesh,
 `shard_map` and `pure_callback` stub of multi-device runs (ROADMAP Queue
 1 item 12).
 """
@@ -32,10 +33,14 @@ WKV_BWD = _build.Kernel(
     'wkv_bwd.cu', 'wkv_bwd_launch',
     [_build.PTR] * 15 + [_build.INT] * 5 + [_build.PTR])
 
-# Head sizes the kernels are instantiated for (threads per block).
+# Head sizes the kernels are instantiated for.
 KERNEL_K = (8, 16, 32, 64)
-# Time steps per sub-chunk of the backward kernel (`kSub` in wkv_bwd.cu).
-WKV_BWD_SUB = 4
+# Time steps per stage of the backward kernel and between its
+# checkpoints (`kSub`, `kSeg` in wkv_bwd.cu; kSeg sizes its checkpoint
+# scratch), and the longest chunk it takes.
+WKV_BWD_SUB = 16
+WKV_BWD_SEG = 8
+WKV_BWD_MAX_CHUNK = 64
 IO_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -71,17 +76,45 @@ def _check(r, k, v, w, u, chunk, extra=()):
             raise TypeError(f'{name} must be {dtype}; got {a.dtype}')
 
 
-def _check_launch(r):
-    n, t, kk = r.shape
+def _check_launch(r, chunk=None):
+    """Raise on shapes the kernels do not take: K outside KERNEL_K, or
+    (for the backward, `chunk` given) a chunk above WKV_BWD_MAX_CHUNK.
+    N*T*K has no limit: the kernels index in 64 bits."""
+    kk = r.shape[-1]
     if kk not in KERNEL_K:
         raise ValueError(f'the WKV kernels take K in {KERNEL_K}; got {kk}')
-    if n * t * kk >= 2 ** 31:
-        raise ValueError('N*T*K exceeds the int32 range of the launcher')
+    if chunk is not None and chunk > WKV_BWD_MAX_CHUNK:
+        raise ValueError(f'the backward kernel takes chunks of at most '
+                         f'{WKV_BWD_MAX_CHUNK} steps; got {chunk}')
+
+
+def _aligned(*tensors):
+    """The kernels copy with 16-byte loads: a contiguous view that starts
+    off a 16-byte boundary is copied to one that does not."""
+    return [a if a is None or a.data_ptr() % 16 == 0 else a.clone()
+            for a in tensors]
+
+
+def fwd_geometry(kk: int) -> dict:
+    """The forward kernel's launch geometry for head size kk, as the
+    kernel reports it: C blocks per sequence, R threads per value column,
+    time steps per stage."""
+    c, r_, steps = WKV_FWD.query('wkv_fwd_geometry', kk)[:3]
+    return dict(C=c, R=r_, steps=steps)
+
+
+def bwd_geometry(kk: int) -> dict:
+    """The backward kernel's launch geometry for head size kk, as the
+    kernel reports it: C blocks per sequence (one cluster), R threads per
+    row of S, kSub time steps per stage, kSeg between checkpoints."""
+    c, r_, sub, seg = WKV_BWD.query('wkv_bwd_geometry', kk)[:4]
+    return dict(C=c, R=r_, kSub=sub, kSeg=seg)
 
 
 def _launch(r, k, v, w, u, s0, chunk, boundaries):
     n, t, kk = r.shape
     _check_launch(r)
+    r, k, v, w, u, s0 = _aligned(r, k, v, w, u, s0)
     o = torch.empty_like(r)
     sT = torch.empty((n, kk, kk), dtype=f32, device=r.device)
     bnd = (torch.empty((n, t // chunk, kk, kk), dtype=f32, device=r.device)
@@ -117,14 +150,16 @@ def wkv_forward(r, k, v, w, u, s0, *, chunk: int, boundaries: bool = True):
 
 def _launch_bwd(r, k, v, w, u, bnd, do, dsT, chunk):
     n, t, kk = r.shape
-    _check_launch(r)
+    _check_launch(r, chunk)
+    r, k, v, w, u, bnd, do, dsT = _aligned(r, k, v, w, u, bnd, do, dsT)
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty((n, t, kk), dtype=f32, device=r.device)
     du = torch.empty((n, kk), dtype=f32, device=r.device)
     ds0 = torch.empty((n, kk, kk), dtype=f32, device=r.device)
-    # the state at the start of every sub-chunk of the chunk being walked
-    # (the kernel's scratch; `WKV_BWD_SUB` steps per sub-chunk)
-    ckpt = torch.empty((n, -(-chunk // WKV_BWD_SUB), kk, kk), dtype=f32,
+    # the state every kSeg steps of the chunk being walked (the kernel's
+    # scratch, as the kernel sizes it)
+    seg = bwd_geometry(kk)['kSeg'] if n else WKV_BWD_SEG
+    ckpt = torch.empty((n, -(-chunk // seg), kk, kk), dtype=f32,
                        device=r.device)
     if n:
         stream = torch.cuda.current_stream(r.device).cuda_stream

@@ -166,6 +166,118 @@ def test_wkv_backward_kernel_matches_plain(dtype, kk, tt, cuda_device):
     assert torch.equal(got[5], want[5])
 
 
+def _wkv_fwd_matches(got, want):
+    """The forward bars: states and boundaries bit-equal, o within 1e-4 of
+    its scale plus one ulp where o is bf16."""
+    (o, sT, bnd), (op, sTp, bndp) = got, want
+    assert o.dtype == op.dtype and torch.equal(sT, sTp)
+    assert (bnd is None) == (bndp is None)
+    assert bnd is None or torch.equal(bnd, bndp)
+    assert _within(o, op)
+
+
+def _wkv_bwd_matches(got, want):
+    for name, a, b in zip(('dr', 'dk', 'dv', 'dw', 'du', 'ds0'), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _within(a, b), name
+    assert torch.equal(got[5], want[5])
+
+
+# N = 1, and N not a multiple of the block split or cluster size, with
+# N = 300 at K = 64 for a grid wider than one wave of blocks.
+GEOMETRY_CASES = [(1, 8), (7, 8), (1, 16), (7, 16), (1, 32), (5, 32),
+                  (1, 64), (7, 64), (300, 64)]
+
+
+@pytest.mark.parametrize('nn,kk', GEOMETRY_CASES)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_wkv_kernels_match_plain_at_every_geometry(dtype, nn, kk,
+                                                   cuda_device):
+    """Both kernels against their plain versions at odd sequence counts,
+    T = 100 (chunk 4, shorter than a sub-chunk) and T = 128 (chunk 64),
+    with the bars of the two tests above."""
+    for tt in (100, 128):
+        args = _wkv_case(nn, tt, kk, dtype, cuda_device, seed=3)
+        chunk = W._pick_chunk(tt)
+        got = W.wkv_forward(*args, chunk=chunk)
+        _wkv_fwd_matches(got, wkv_forward_plain(*args, chunk=chunk))
+        r, k, v, w, u, s0 = args
+        g = torch.Generator(device=cuda_device)
+        g.manual_seed(nn + kk + tt)
+        do = torch.randn(r.shape, generator=g, device=cuda_device).to(dtype)
+        dsT = torch.randn(s0.shape, generator=g, device=cuda_device)
+        bwd_args = (r, k, v, w, u, got[2], do, dsT)
+        _wkv_bwd_matches(W.wkv_backward(*bwd_args, chunk=chunk),
+                         wkv_backward_plain(*bwd_args, chunk=chunk))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize('nn', [7, 160, 320])
+def test_wkv_kernels_are_deterministic(nn, cuda_device):
+    """No atomics: two launches on the same inputs give the same bits in
+    every output of both kernels (N = 160 and 320 are the training and
+    prefill sequence counts, each on its own block split)."""
+    args = _wkv_case(nn, 256, 64, torch.bfloat16, cuda_device, seed=4)
+    first = W.wkv_forward(*args, chunk=64)
+    second = W.wkv_forward(*args, chunk=64)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    r, k, v, w, u, s0 = args
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(nn)
+    do = torch.randn(r.shape, generator=g, device=cuda_device).to(r.dtype)
+    dsT = torch.randn(s0.shape, generator=g, device=cuda_device)
+    bwd_args = (r, k, v, w, u, first[2], do, dsT)
+    first = W.wkv_backward(*bwd_args, chunk=64)
+    second = W.wkv_backward(*bwd_args, chunk=64)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_wkv_geometry_as_the_kernels_report_it(cuda_device):
+    """The backward's stage and checkpoint interval are the wrapper's,
+    which sizes the scratch, and its cluster splits the rows evenly; the
+    forward gives the prefill and training shapes (N = 320, 160) at least
+    two blocks on every SM."""
+    bwd = W.bwd_geometry(64)
+    assert bwd['kSub'] == W.WKV_BWD_SUB and bwd['kSeg'] == W.WKV_BWD_SEG
+    assert 64 % (bwd['C'] * 4) == 0 and bwd['C'] * bwd['R'] > 1
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for nn in (160, 320):
+        assert W.fwd_geometry(64)['C'] * nn >= 2 * sms
+
+
+def test_wkv_kernels_past_2_31_elements(cuda_device):
+    """N * T * K = 8200 * 4096 * 64 = 2.15e9 > 2^31 (about 58 GB in all):
+    both kernels run, and sequences 8190-8199 (from 8192 on wholly past
+    element 2^31, 8191 ending at it) match the plain versions run on
+    those ten sequences alone."""
+    nn, tt, kk, dt = 8200, 4096, 64, torch.bfloat16
+    assert nn * tt * kk > 2 ** 31 and 8192 * tt * kk == 2 ** 31
+    dev = cuda_device
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    r, k, v = (torch.randn(nn, tt, kk, generator=g, device=dev, dtype=dt)
+               for _ in range(3))
+    w = torch.rand(nn, tt, kk, generator=g, device=dev).mul_(0.499).add_(0.5)
+    u = torch.randn(nn, kk, generator=g, device=dev)
+    s0 = 0.1 * torch.randn(nn, kk, kk, generator=g, device=dev)
+    tail = slice(8190, 8200)
+    o, sT, bnd = W.wkv_forward(r, k, v, w, u, s0, chunk=64)
+    part = [a[tail] for a in (r, k, v, w, u, s0)]
+    _wkv_fwd_matches((o[tail], sT[tail], bnd[tail]),
+                     wkv_forward_plain(*part, chunk=64))
+    del o, sT
+    do = torch.randn(nn, tt, kk, generator=g, device=dev, dtype=dt)
+    dsT = torch.randn(nn, kk, kk, generator=g, device=dev)
+    got = W.wkv_backward(r, k, v, w, u, bnd, do, dsT, chunk=64)
+    want = wkv_backward_plain(*part[:5], bnd[tail], do[tail], dsT[tail],
+                              chunk=64)
+    torch.cuda.synchronize()
+    _wkv_bwd_matches([a[tail] for a in got], want)
+
+
 def test_wkv_apply_backward_on_the_card_matches_the_cpu(cuda_device):
     """Gradients of sum(o^2) through the autograd function: one forward
     launch with boundaries and one backward launch, and the same

@@ -215,6 +215,9 @@ def test_prepared_bands_bound_every_frontier():
 
 
 def test_auto_tiering_switches_at_kernel_max_m(monkeypatch):
+    """The card's tiering, through the route seam: the pairwise kernel up
+    to KERNEL_MAX_M examples, the rank-counts kernel above (their plain
+    versions run here, on CPU tensors); off the card, the tree."""
     calls = []
     monkeypatch.setattr(PR, 'pairwise_counts',
                         lambda p, y: calls.append('pairwise') or
@@ -223,10 +226,39 @@ def test_auto_tiering_switches_at_kernel_max_m(monkeypatch):
                         lambda y: lambda p: calls.append('rank') or
                         TC.counts_fused(p, y))
     monkeypatch.setattr(PR, 'KERNEL_MAX_M', 8)
+    on_card = PR.auto_route
+    monkeypatch.setattr(PR, 'auto_route',
+                        lambda m, device: on_card(m, 'cuda'))
     p = torch.arange(9, dtype=torch.float32)
     PR.counts_auto(p[:8], p[:8])
     PR.counts_auto(p, p)
     assert calls == ['pairwise', 'rank']
+    assert [on_card(m, dev) for m, dev in ((8, 'cuda'), (9, 'cuda:0'),
+                                           (8, 'cpu'), (9, 'cpu'))] == [
+        'pairwise', 'rank_counts', 'tree', 'tree']
+
+
+@pytest.mark.parametrize('m', [8, 5000], ids=['below', 'above'])
+def test_auto_on_cpu_tensors_counts_with_the_tree(m, monkeypatch):
+    """engine='auto' on CPU tensors runs `counts_fused`, as the
+    reference's auto does off the TPU, on either side of KERNEL_MAX_M:
+    neither kernel is launched and neither plain version runs."""
+    def refuse(*args, **kw):
+        raise AssertionError('a plain kernel version ran')
+    monkeypatch.setattr(PR, 'pairwise_counts_plain', refuse)
+    monkeypatch.setattr(RC, 'rank_counts_plain', refuse)
+    calls = []
+    real = TC.counts_fused
+    monkeypatch.setattr(TC, 'counts_fused',
+                        lambda p, y: calls.append(1) or real(p, y))
+    p, y = _grid(m)
+    before = (PR.PAIRWISE.launches, RC.RANK_COUNTS.launches)
+    c, d = PR.counts_auto(t(p), t(y))
+    assert calls == [1]
+    assert (PR.PAIRWISE.launches, RC.RANK_COUNTS.launches) == before
+    cr, dr = JPR.counts_auto(jnp.asarray(p), jnp.asarray(y))
+    assert np.array_equal(c.numpy(), np.asarray(cr))
+    assert np.array_equal(d.numpy(), np.asarray(dr))
 
 
 def test_cpu_tensors_never_launch():

@@ -183,6 +183,8 @@ def test_rank_counter_ranks_y_once_per_oracle(engine, grouped, monkeypatch):
     monkeypatch.setattr(RC, '_compact_ranks',
                         lambda y: calls.append(1) or real(y))
     monkeypatch.setattr(PR, 'KERNEL_MAX_M', 8)   # 'auto' takes rank-counts
+    on_card = PR.auto_route                       # as it does on the card
+    monkeypatch.setattr(PR, 'auto_route', lambda m, dev: on_card(m, 'cuda'))
     name, X, y, g = next(c for c in CASES if (c[3] is not None) == grouped)
     oracle = TO.make_oracle(X, y, groups=g, method='tree', engine=engine,
                             device='cpu')

@@ -315,3 +315,28 @@ def test_wkv_forward_checks_its_inputs(bad):
         chunk, err = 5, ValueError
     with pytest.raises(err):
         W.wkv_forward(r, k, v, w, u, s0, chunk=chunk)
+
+
+def test_kernels_take_shapes_past_2_31_elements():
+    """The launch check has no N*T*K limit: the prefill_32k cell at its
+    global batch (N = 32 x 40 heads, T = 32768, K = 64: 2.7e9 elements)
+    and the card test's 8200 x 4096 x 64 pass it (shapes only, on the
+    meta device)."""
+    for shape in ((1280, 32768, 64), (8200, 4096, 64)):
+        r = torch.empty(shape, dtype=torch.bfloat16, device='meta')
+        assert r.numel() >= 2 ** 31
+        W._check_launch(r)
+        W._check_launch(r, chunk=64)
+
+
+@pytest.mark.parametrize('kk,chunk,ok', [(64, 64, True), (48, None, False),
+                                         (64, 128, False)])
+def test_launch_check_refuses_what_the_kernels_do_not_take(kk, chunk, ok):
+    """K outside KERNEL_K, and chunks longer than the backward kernel's
+    partial-sum buffer, raise before any launch."""
+    r = torch.empty((2, 128, kk), dtype=torch.bfloat16, device='meta')
+    if ok:
+        W._check_launch(r, chunk)
+    else:
+        with pytest.raises(ValueError):
+            W._check_launch(r, chunk)
