@@ -13,9 +13,10 @@ line; any failure ends the run with a non-zero exit code:
 
 1. build   build every kernel (one nvcc per source, in parallel).
 2. parity  each kernel against its plain torch version on the card,
-           bit for bit: the pairwise kernel at m = 1, 127, 4096 with heavy
-           ties; the rank-counts kernel at m = 65536 against its plain
-           version and at m = 2^20 against the merge-sort tree.
+           bit for bit: the pairwise kernel at m = 1, 127, 4096, 8193 with
+           heavy ties; the rank-counts kernels at m = 65536 against their
+           plain version (c, d and every scratch table) and at m = 2^20
+           against the merge-sort tree.
 3. wkv_parity  the WKV forward kernel against its plain torch version
            on the card, o, final state and chunk-boundary states: at the
            prefill shape N = 320 (B = 8 x H = 40), T = 4096, K = 64 with
@@ -42,7 +43,12 @@ line; any failure ends the run with a non-zero exit code:
 7. guard   engine='pallas' on real-valued utilities at m = 2^20: more
            distinct utilities than histogram levels, so the wrapper must
            count with the tree (no kernel launch) and equal it.
-8. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
+8. sweep   the counting tiers on the card, for KERNEL_MAX_M and
+           DEFAULT_LEVELS: the pairwise kernel, the rank-counts call and
+           the tree at m = 2^10 .. 2^16, and the rank-counts call against
+           the tree at m = 2^20 with 64, 256 and 1024 distinct utilities;
+           all agree bit for bit at every point.
+9. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
            layers, d = 2560, 40 heads of 64, d_ff = 8960, vocab 65536),
            seeded random weights made on the card, wkv_impl='kernel':
            prefill of B = 8 prompts of T = 4096 tokens (a cut of the
@@ -56,7 +62,7 @@ line; any failure ends the run with a non-zero exit code:
            prefill tokens/s, decode ms per token, the kernel's ms per
            call, and profiler windows over a prefill and decode steps.
            It releases its model before the next phase.
-9. train   RWKV-6 training at the full rwkv6-3b width and depth, seeded
+10. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
            weights as in lm, wkv_impl='kernel', remat='layer', AdamW
            (f32 master, m, v): first the gradients at B = 1, T = 256, the
            kernel route against the scan route on the same weights, every
@@ -73,18 +79,20 @@ line; any failure ends the run with a non-zero exit code:
            kernels' share of its device time), and both WKV kernels' times
            at the training shape (N = 160; the forward writing
            boundaries).
-10. time   where an iteration's time goes at the main shapes (CUDA
+11. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
            bundle steps (device busy share, device operations per step).
 
 Then the card's name and power limit (nvidia-smi), one line
-{"kernels": [...]} with each kernel's time, its plain version's time,
-its bound (the larger of its bytes at 3.35 TB/s and its operations at
-67 TFLOP/s) and its launches on its main path (the WKV rows also with
-their launch geometry as the kernels report it: C blocks per sequence,
-R threads per column or row, steps per stage, and the backward's steps
-between checkpoints), and last
+{"kernels": [...]} with each kernel's time (for the two counting kernels
+their device time from the profiler, beside `events_ms`, their launches
+back to back by CUDA events), its plain version's time, its bound (the
+larger of its bytes at 3.35 TB/s and its operations at 67 TFLOP/s) and
+its launches on its main path (the WKV and pairwise rows also with their
+launch geometry as the kernels report it: C blocks per sequence, R
+threads per column or row, steps per stage, and the backward's steps
+between checkpoints; the pairwise kernel's candidate splits), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -150,6 +158,21 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, name_part: str, reps: int) -> float:
+    """Mean milliseconds per fn() of the CUDA kernels whose name holds
+    `name_part`, from their device durations in a profiler window: the
+    kernels' own time, without the host's launch cost that a short
+    kernel's back-to-back CUDA-event time is bound by."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return _device_busy(prof, name_part)[2] / 1e3 / reps
+
+
 def mslr_like(torch, m: int, seed: int, dev):
     """Dense MSLR-WEB10K-width data made on the card from `seed`: 136
     standardized features and five relevance grades cut from a noisy
@@ -191,7 +214,7 @@ def phase_parity(ctx):
     g = torch.Generator(device=dev)
     g.manual_seed(ctx['seed'] + 1)
     out = {}
-    for m in (1, 127, 4096):
+    for m in (1, 127, 4096, 8193):
         # scores on a 0.5 grid: many p_j == p_i +- 1 boundary ties
         p = torch.randint(-4, 5, (m,), generator=g, device=dev) * 0.5
         y = torch.randint(0, 3, (m,), generator=g, device=dev).float()
@@ -204,13 +227,14 @@ def phase_parity(ctx):
     m = 65536
     p = (torch.randint(-40, 41, (m,), generator=g, device=dev) * 0.25).float()
     y = torch.randint(0, 5, (m,), generator=g, device=dev).float()
-    prep = RC._prepare(p, RC._compact_ranks(y), RC.TI, RC.TJ,
-                       RC.DEFAULT_LEVELS)[1:]
-    c, d = RC.sorted_counts(*prep)
-    cp, dp = rank_counts_plain(*prep, RC.TI, RC.TJ)
+    ranks = RC._compact_ranks(y)
+    n_ranks = int(ranks.max()) + 1
+    args = (*torch.sort(p, stable=True), ranks, n_ranks)
+    got = RC.counts_from_sort(*args)
+    want = rank_counts_plain(*args, RC.pick_tj(n_ranks))
     torch.cuda.synchronize()
-    check(torch.equal(c, cp) and torch.equal(d, dp),
-          'rank-counts kernel != plain at m=65536')
+    check(_counts_equal(torch, got, want),
+          'rank-counts kernels != plain at m=65536')
     out['rank_counts_m65536'] = 'equal'
     p = (torch.randint(-400, 401, (M,), generator=g, device=dev)
          * 0.25).float()
@@ -222,6 +246,14 @@ def phase_parity(ctx):
           f'rank-counts kernel != tree at m={M}')
     out[f'rank_counts_m{M}_vs_tree'] = 'equal'
     return out
+
+
+def _counts_equal(torch, got, want):
+    """The rank-counts kernels' (c, d, (yr, planes, table)) against the
+    plain version's: every tensor bit-equal."""
+    (c, d, prep), (cp, dp, prepp) = got, want
+    return all(torch.equal(a, b) for a, b in zip((c, d, *prep),
+                                                 (cp, dp, *prepp)))
 
 
 def _wkv_inputs(torch, n, t, kk, dtype, dev, g):
@@ -455,58 +487,129 @@ def phase_guard(ctx):
                 rank_counts_launches=0, equal_to_tree=True)
 
 
-def _rank_counts_row(ctx):
+def phase_sweep(ctx):
+    """The counting tiers on this card, for KERNEL_MAX_M and
+    DEFAULT_LEVELS: the pairwise kernel, the rank-counts call and the
+    tree at m = 2^10 .. 2^16 (normal scores, five grades), and the
+    rank-counts call against the tree at m = 2^20 (the main scores) with
+    64, 256 and 1024 distinct utilities. All three agree bit for bit at
+    every point."""
     torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.core import counts as TC
+    from repro_torch.kernels.pairwise_rank import ops as PR
+    from repro_torch.kernels.rank_counts import ops as RC
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 11)
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    tiers = []
+    for e in range(10, 17):
+        m = 1 << e
+        p = 2 * torch.randn(m, generator=g, device=dev)
+        y = torch.randint(0, 5, (m,), generator=g, device=dev).float()
+        count = RC.rank_counter(y)
+        tree = TC.counts_fused(p, y)
+        check(same(PR.pairwise_counts(p, y), tree) and same(count(p), tree),
+              f'the counting tiers disagree at m={m}')
+        tiers.append(dict(
+            m=m,
+            pairwise_ms=time_ms(torch, lambda: PR.pairwise_counts(p, y),
+                                reps=20),
+            rank_counts_ms=time_ms(torch, lambda: count(p), reps=20),
+            tree_ms=time_ms(torch, lambda: TC.counts_fused(p, y), reps=5)))
+    faster = [t['m'] for t in tiers if t['pairwise_ms'] <= t['rank_counts_ms']]
+    p = ctx['X'] @ torch.as_tensor(ctx['w_main'], dtype=torch.float32,
+                                   device=dev)
+    levels = []
+    for k in (64, 256, 1024):
+        y = torch.randint(0, k, (M,), generator=g, device=dev).float()
+        count = RC.rank_counter(y, levels=k)
+        check(same(count(p), TC.counts_fused(p, y)),
+              f'rank counts != tree at {k} distinct utilities')
+        row = dict(distinct=k, tj=RC.pick_tj(k),
+                   rank_counts_ms=time_ms(torch, lambda: count(p), reps=10),
+                   tree_ms=time_ms(torch, lambda: TC.counts_fused(p, y),
+                                   reps=3))
+        row['call_beats_tree'] = row['rank_counts_ms'] < row['tree_ms']
+        levels.append(row)
+    return dict(tiers=tiers, pairwise_not_slower_up_to=max(faster, default=0),
+                kernel_max_m=PR.KERNEL_MAX_M, levels_m=M, levels=levels,
+                default_levels=RC.DEFAULT_LEVELS)
+
+
+def _rank_counts_row(ctx):
+    """The rank-counts call at the main shapes: `ms` the device time of the
+    kernels after the sort (one launcher call: gather, scan, count),
+    `events_ms` the same launches back to back by CUDA events (host
+    launch cost included), `wrapper_ms` the whole call p -> (c, d), with
+    its device launches and busy share from the profiler."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.rank_counts import ops as RC
     from repro_torch.kernels.rank_counts.ref import rank_counts_plain
     X, y = ctx['X'], ctx['y']
     p = X @ torch.as_tensor(ctx['w_main'], dtype=torch.float32, device=dev)
-    _, band, ps, yr, gt, lt = RC._prepare(
-        p, RC._compact_ranks(y), RC.TI, RC.TJ, RC.DEFAULT_LEVELS)
-    args = (band, ps, yr, gt, lt)
-    ms = time_ms(torch, lambda: RC._launch(*args, RC.TI, RC.TJ), reps=20)
-    c, d = RC._launch(*args, RC.TI, RC.TJ)
+    ranks = RC._compact_ranks(y)
+    n_ranks = int(ranks.max()) + 1
+    tj = RC.pick_tj(n_ranks)
+    args = (*torch.sort(p, stable=True), ranks, n_ranks)
+    ms = device_ms(torch, lambda: RC._launch(*args, RC.TI, tj), 'rc_', 50)
+    events_ms = time_ms(torch, lambda: RC._launch(*args, RC.TI, tj), reps=50)
+    got = RC._launch(*args, RC.TI, tj)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cp, dp = rank_counts_plain(*args, RC.TI, RC.TJ)
+    want = rank_counts_plain(*args, tj)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    err = max(int((c - cp).abs().max()), int((d - dp).abs().max()))
-    check(err == 0, 'rank-counts kernel != plain at the main shapes')
+    err = max(int((got[0] - want[0]).abs().max()),
+              int((got[1] - want[1]).abs().max()))
+    check(err == 0 and _counts_equal(torch, got, want),
+          'rank-counts kernels != plain at the main shapes')
     count = RC.rank_counter(y)
-    wrapper_ms = time_ms(torch, lambda: count(p), reps=5)
-    # The least the card could take is the bytes of the kernel's inputs,
-    # each read once, and of c and d, each written once. The compares
-    # over the partial bands are not the function's work (their number
-    # follows the candidate tile TJ), so they are printed beside the
-    # bound as `band_compares` and do not enter it.
-    m = ps.shape[0]
-    nbytes = 4 * (band.numel() + 2 * m + gt.numel() + lt.numel() + 2 * m)
-    q = torch.clamp(m - torch.arange(band.shape[0], device=dev) * RC.TI,
-                    max=RC.TI)
-    b = band.long()
-
-    def width(lo, hi):          # candidates in tiles [lo, hi)
-        return torch.clamp(torch.clamp(hi * RC.TJ, max=m) - lo * RC.TJ,
-                           min=0)
-
-    pairs = int((q * (width(b[:, 0], b[:, 1])
-                      + width(b[:, 2], b[:, 3]))).sum())
+    wrapper_ms = time_ms(torch, lambda: count(p), reps=20)
+    calls = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            count(p)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy, n_ops, _ = _device_busy(prof)
+    # The least the card could take is the function's own bytes: p and
+    # the ranks read once, c and d written once (16 m). The tables are
+    # the design's scratch, not the function's, so they do not enter the
+    # bound (they are printed as `table_bytes`).
+    m = p.shape[0]
+    yr, planes, table = got[2]
     return _row('rank_counts', 'src/repro_torch/kernels/csrc/rank_counts.cu',
                 'src/repro/kernels/rank_counts/kernel.py:59',
-                ctx['launches']['rank_counts'], err, ms, plain_ms, nbytes,
-                None, m=m, band_compares=2 * pairs, wrapper_ms=wrapper_ms,
+                ctx['launches']['rank_counts'], err, ms, plain_ms, 16 * m,
+                None, m=m, n_ranks=n_ranks, tj=tj, events_ms=events_ms,
+                band_compares=0,
+                table_bytes=4 * (planes.numel() + table.numel()),
+                wrapper_ms=wrapper_ms,
+                device_launches_per_call=n_ops / calls,
+                call_device_busy_share=busy / wall_us if n_ops else None,
+                call_device_busy_ms=busy / 1e3 / calls,
+                top_kernels=_top_kernels(prof, k=8),
                 launches_per_iteration=ctx['launches']['rank_counts']
                 / ctx['main_iterations'])
 
 
 def _pairwise_row(ctx):
+    """The pairwise kernel at the auto cell's shape: `ms` its device time,
+    `events_ms` its launches back to back by CUDA events (host launch
+    cost included)."""
     torch = ctx['torch']
     from repro_torch.kernels.pairwise_rank import ops as PR
     from repro_torch.kernels.pairwise_rank.ref import pairwise_counts_plain
     X, y, w = ctx['auto_data']
     p = X @ torch.as_tensor(w, dtype=torch.float32, device=X.device)
-    ms = time_ms(torch, lambda: PR._launch(p, y), reps=50)
+    ms = device_ms(torch, lambda: PR._launch(p, y), 'pairwise_counts', 50)
+    events_ms = time_ms(torch, lambda: PR._launch(p, y), reps=50)
     c, d = PR._launch(p, y)
     plain_ms = time_ms(torch, lambda: pairwise_counts_plain(p, y), reps=5)
     cp, dp = pairwise_counts_plain(p, y)
@@ -517,8 +620,9 @@ def _pairwise_row(ctx):
                 'pairwise_rank.cu',
                 'src/repro/kernels/pairwise_rank/kernel.py:30',
                 ctx['launches']['pairwise'], err, ms, plain_ms, 16 * m,
-                4 * m * m, m=m, launches_per_iteration=ctx['launches'][
-                    'pairwise'] / ctx['auto_iterations'])
+                4 * m * m, m=m, events_ms=events_ms, geometry=PR.geometry(m),
+                launches_per_iteration=ctx['launches']['pairwise']
+                / ctx['auto_iterations'])
 
 
 def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
@@ -1127,7 +1231,8 @@ def _top_kernels(prof, k=6):
 PHASES = (('build', phase_build), ('parity', phase_parity),
           ('wkv_parity', phase_wkv_parity),
           ('wkv_bwd_parity', phase_wkv_bwd_parity), ('main', phase_main),
-          ('auto', phase_auto), ('guard', phase_guard), ('lm', phase_lm),
+          ('auto', phase_auto), ('guard', phase_guard),
+          ('sweep', phase_sweep), ('lm', phase_lm),
           ('train', phase_train), ('time', phase_time))
 
 

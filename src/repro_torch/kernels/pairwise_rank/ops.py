@@ -21,9 +21,11 @@ PAIRWISE = _build.Kernel('pairwise_rank.cu', 'pairwise_counts_launch',
                           _build.PTR, _build.PTR])
 
 # Largest m sent to the O(m^2) kernel by `counts_auto`; above it the
-# rank-counts kernel runs. The value is the TPU crossover of the JAX
-# package and has not been measured on the H100 yet.
-KERNEL_MAX_M = 4096
+# rank-counts call runs. Measured on the H100 (chip_smoke.py's sweep
+# phase, PERF.md): per call, the pairwise kernel is the faster of the two
+# up to m = 8192 in every run; at m = 16384 the two trade places between
+# runs (the rank-counts call's time there is mostly host launch cost).
+KERNEL_MAX_M = 8192
 
 
 def _launch(p: torch.Tensor, y: torch.Tensor):
@@ -38,6 +40,17 @@ def _launch(p: torch.Tensor, y: torch.Tensor):
             PAIRWISE(p.data_ptr(), y.data_ptr(), m, c.data_ptr(),
                      d.data_ptr(), stream)
     return c, d
+
+
+def geometry(m: int) -> dict:
+    """The kernel's launch geometry for m examples, as its launcher picks
+    it on the current device: candidate splits (blocks of one cluster),
+    queries a block and a thread hold, and blocks in all. Not a launch."""
+    splits, tile, per_thread = PAIRWISE.query('pairwise_counts_geometry',
+                                              m)[:3]
+    return dict(splits=splits, queries_per_block=tile,
+                queries_per_thread=per_thread,
+                blocks=-(-m // tile) * splits)
 
 
 def pairwise_counts(p: torch.Tensor, y: torch.Tensor):

@@ -1,21 +1,23 @@
-"""Wrappers around the rank-counting kernel (`csrc/rank_counts.cu`).
+"""Wrappers around the rank-counting kernels (`csrc/rank_counts.cu`).
 
 `rank_counter(y)` is the `counts_dispatch(engine='pallas')` engine. What
 depends on y alone is done once, when the counter is built: the cast,
-the compact y-rank compression and the level guard (one sort of y and
-one read-back). Each call `counter(p)` then does only the p-dependent
-preparation, with no read-back: the sort by score, the per-tile rank
-histogram and its sums over levels, and the four searchsorteds that
-bound each query tile's partial bands. CUDA tensors launch the kernel,
-CPU tensors run the plain version (`ref.rank_counts_plain`) on the same
-prepared inputs. `rank_counts(p, y)` is the one-shot form.
+the compact y-rank compression, the level guard and the size of the
+tables (one sort of y and one read-back of its rank count). Each call
+`counter(p)` then sorts p (`torch.sort`, stable: the sorted scores and
+their order) and makes one call of the kernels' launcher, which gathers
+the sorted ranks, builds the tile table and counts c and d straight into
+example order: no read-back and no allocation whose size depends on p's
+values, so the call can be captured in a CUDA graph. CUDA tensors launch
+the kernels, CPU tensors run the plain version (`ref.rank_counts_plain`)
+on the same inputs. `rank_counts(p, y)` is the one-shot form.
 
-The guard is the reference's exactness rule: the histogram has
-`levels` columns, so an input with more distinct utilities than that
-(continuous targets, or grouped counting, whose key offsets multiply the
-alphabet by the group count) is counted by the merge-sort tree instead.
-The branch is taken on the host when the counter is built; the kernel's
-launch count shows which way it went.
+The guard is the reference's exactness rule: an input with more distinct
+utilities than `levels` (continuous targets, or grouped counting, whose
+key offsets multiply the alphabet by the group count) is counted by the
+merge-sort tree instead, as is one past the kernels' own capacity,
+`MAX_RANKS`. The branch is taken on the host when the counter is built;
+the launch count shows which way it went.
 """
 
 from __future__ import annotations
@@ -24,24 +26,35 @@ import torch
 
 from ...core.counts import _f32, _group_offsets, counts_fused
 from .. import _build
-from .ref import rank_counts_plain
+from .ref import rank_bits, rank_counts_plain
 
-# Launcher of the CUDA kernel; `RANK_COUNTS.launches` counts its launches.
+# Launcher of the three CUDA kernels (gather, scan, count) of one call;
+# `RANK_COUNTS.launches` counts its calls.
 RANK_COUNTS = _build.Kernel(
     'rank_counts.cu', 'rank_counts_launch',
-    [_build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
-     _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR,
-     _build.PTR, _build.PTR])
+    [_build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT, _build.INT,
+     _build.INT, _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
+     _build.PTR])
 
-# Capacity of the rank histogram. Graded relevance has a handful of
-# levels (the paper's data at most 5), so 256 covers real inputs. The
-# value is the JAX package's TPU choice and has not been sized on the
-# H100 yet.
+# The guard's capacity and the public default, as in the reference.
+# Graded relevance has a handful of levels (the paper's data at most 5).
 DEFAULT_LEVELS = 256
-# Query tile (one thread block, one thread per query) and candidate tile
-# (histogram granularity), in elements.
-TI = 256
-TJ = 256
+# The gather kernel keeps one rank histogram per warp (4 warps a block)
+# in the 48 KB of a block's shared memory: 3072 int32 each.
+MAX_RANKS = 3072
+# Sorted queries a block of the count kernel holds (one a thread).
+TI = 512
+
+
+def pick_tj(n_ranks: int) -> int:
+    """Candidate tile for an alphabet of n_ranks: 32 positions (one word
+    of bit planes) up to 64 ranks, doubled until the table, n_ranks
+    int32 per tile, takes at most 8 bytes per position, half the 16 m
+    bytes of the function's own inputs and outputs."""
+    words = 1
+    while 64 * words < n_ranks:
+        words *= 2
+    return 32 * words
 
 
 def _compact_ranks(y: torch.Tensor) -> torch.Tensor:
@@ -57,83 +70,66 @@ def _compact_ranks(y: torch.Tensor) -> torch.Tensor:
     return rank_of_sorted[first].to(torch.int32)
 
 
-def _ceil_div(a: torch.Tensor, b: int) -> torch.Tensor:
-    return -((-a) // b)
-
-
-def _prepare(p, ranks, ti: int, tj: int, levels: int):
-    """Sorted scores and ranks, the per-query-tile bands and the two
-    histogram tables (see the kernel source for their meaning)."""
-    m = p.shape[0]
-    dev = p.device
-    order = torch.argsort(p, stable=True)
-    ps = p[order].contiguous()
-    yr = ranks[order].contiguous()
-    n_i = -(-m // ti)
-    n_j = -(-m // tj)
-
-    # Rank histogram per candidate tile, cumulated over tiles: row t of
-    # `pref` counts each rank among tiles [0, t).
-    key = (torch.arange(m, device=dev) // tj) * levels + yr.long()
-    hist = torch.zeros((n_j * levels,), dtype=torch.int64, device=dev)
-    hist.index_add_(0, key, torch.ones_like(key))
-    pref = torch.zeros((n_j + 1, levels), dtype=torch.int64, device=dev)
-    pref[1:] = torch.cumsum(hist.view(n_j, levels), 0)
-    incl = torch.cumsum(pref, 1)
-    gt = (incl[:, -1:] - incl).to(torch.int32).contiguous()   # ranks > r
-    lt = (incl - pref).to(torch.int32).contiguous()           # ranks < r
-
-    # Bands from each query tile's first and last query (monotone f32
-    # rounding keeps every query's frontier between theirs).
-    starts = torch.arange(n_i, device=dev) * ti
-    ends = torch.clamp(starts + ti, max=m) - 1
-    q0, q1 = ps[starts], ps[ends]
-    l_min = torch.searchsorted(ps, q0 + 1.0, right=False)
-    l_max = torch.searchsorted(ps, q1 + 1.0, right=False)
-    r_min = torch.searchsorted(ps, q0 - 1.0, right=True)
-    r_max = torch.searchsorted(ps, q1 - 1.0, right=True)
-    band = torch.stack([l_min // tj, _ceil_div(l_max, tj),
-                        r_min // tj, _ceil_div(r_max, tj)],
-                       dim=1).to(torch.int32).contiguous()
-    return order, band, ps, yr, gt, lt
-
-
-def _launch(band, ps, yr, gt, lt, ti: int, tj: int):
-    m = ps.shape[0]
+def _check_tiles(m: int, ti: int, tj: int) -> None:
     if not (32 <= ti <= 1024 and ti % 32 == 0):
         raise ValueError(f'ti = {ti}: one thread per query needs a block '
                          'of 32 to 1024 threads, a multiple of 32')
-    if not 1 <= tj <= 6144:
-        raise ValueError(f'tj = {tj} does not fit the 48 KB of static '
-                         'shared memory (8 bytes per candidate)')
-    for name, t, dt in (('band', band, torch.int32), ('ps', ps, torch.float32),
-                        ('yr', yr, torch.int32), ('gt', gt, torch.int32),
-                        ('lt', lt, torch.int32)):
-        if t.device != ps.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f'{name} must be a contiguous {dt} tensor on '
-                             f'{ps.device}')
-    c = torch.empty((m,), dtype=torch.int32, device=ps.device)
-    d = torch.empty((m,), dtype=torch.int32, device=ps.device)
+    if tj < 32 or tj % 32:
+        raise ValueError(f'tj = {tj}: a candidate tile is a whole number '
+                         'of 32-position words')
+    if m + tj >= 2 ** 31:
+        raise ValueError(f'm = {m} exceeds the int32 range of the kernels')
+
+
+def _launch(ps, order, ranks, n_ranks: int, ti: int, tj: int):
+    m = ps.shape[0]
+    for name, t, dt in (('ps', ps, torch.float32),
+                        ('order', order, torch.int64),
+                        ('ranks', ranks, torch.int32)):
+        if (t.device != ps.device or t.dtype != dt or not t.is_contiguous()
+                or t.shape != (m,)):
+            raise ValueError(f'{name} must be a contiguous ({m},) {dt} '
+                             f'tensor on {ps.device}')
+    if not 1 <= n_ranks <= MAX_RANKS:
+        raise ValueError(f'n_ranks = {n_ranks} is outside 1 .. {MAX_RANKS}')
+    _check_tiles(m, ti, tj)
+    dev = ps.device
+    yr = torch.empty((m,), dtype=torch.int32, device=dev)
+    planes = torch.empty((-(-m // 32), rank_bits(n_ranks)),
+                         dtype=torch.int32, device=dev)
+    table = torch.empty((n_ranks, -(-m // tj) + 1), dtype=torch.int32,
+                        device=dev)
+    # (L, R) of each count block's first query, and of the last query
+    edges = torch.empty((-(-m // ti) + 1, 2), dtype=torch.int32, device=dev)
+    cd = torch.empty((m, 2), dtype=torch.int32, device=dev)
     if m:
-        stream = torch.cuda.current_stream(ps.device).cuda_stream
-        with torch.cuda.device(ps.device):
-            RANK_COUNTS(band.data_ptr(), ps.data_ptr(), yr.data_ptr(),
-                        gt.data_ptr(), lt.data_ptr(), m, ti, tj,
-                        gt.shape[1], c.data_ptr(), d.data_ptr(), stream)
-    return c, d
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            RANK_COUNTS(ps.data_ptr(), order.data_ptr(), ranks.data_ptr(), m,
+                        n_ranks, ti, tj, yr.data_ptr(), planes.data_ptr(),
+                        table.data_ptr(), edges.data_ptr(), cd.data_ptr(),
+                        stream)
+    return cd[:, 0], cd[:, 1], (yr, planes, table)
 
 
-def sorted_counts(band, ps, yr, gt, lt, ti: int = TI, tj: int = TJ):
-    """(c, d) in sorted order from prepared inputs: the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+def counts_from_sort(ps, order, ranks, n_ranks: int, ti: int = TI,
+                     tj: int | None = None):
+    """(c, d, (yr, planes, table)) from the stable sort of p (values ps
+    and indices order) and the compact ranks in example order: the
+    kernels for CUDA tensors, the plain version for CPU tensors. c and d
+    are int32 in example order, the two columns of one (m, 2) tensor (the
+    count kernel stores a query's pair at once); the rest is what the
+    gather and scan kernels wrote (`ref.prepare_plain` says what)."""
+    tj = pick_tj(n_ranks) if tj is None else tj
     if ps.is_cuda:
-        return _launch(band, ps, yr, gt, lt, ti, tj)
+        return _launch(ps, order, ranks, n_ranks, ti, tj)
     if ps.device.type != 'cpu':
         raise ValueError(f'unsupported device {ps.device}')
-    return rank_counts_plain(band, ps, yr, gt, lt, ti, tj)
+    _check_tiles(ps.shape[0], ti, tj)
+    return rank_counts_plain(ps, order, ranks, n_ranks, tj)
 
 
-def rank_counter(y: torch.Tensor, ti: int = TI, tj: int = TJ,
+def rank_counter(y: torch.Tensor, ti: int = TI, tj: int | None = None,
                  levels: int = DEFAULT_LEVELS):
     """`p -> (c, d)` for the fixed utilities y, bit-identical to
     `ref.counts_ref(p, y)`.
@@ -141,15 +137,19 @@ def rank_counter(y: torch.Tensor, ti: int = TI, tj: int = TJ,
     y is cast to float32 as in the reference, ranked and checked against
     `levels` here, once; an oracle builds its counter when it is made,
     so a fit pays that sort and read-back once, not per iteration. With
-    more than `levels` distinct utilities the counter is the tree
-    (`core.counts.counts_fused`), so exactness never depends on the
-    histogram's capacity."""
+    more than min(levels, MAX_RANKS) distinct utilities the counter is
+    the tree (`core.counts.counts_fused`), so exactness never depends on
+    the kernels' capacity. tj, the candidate tile, defaults to
+    `pick_tj` of the alphabet."""
     if y.dim() != 1:
         raise ValueError(f'y must be 1-D; got shape {tuple(y.shape)}')
     y = _f32(y).contiguous()
     m = y.shape[0]
     ranks = _compact_ranks(y) if m else None
-    guarded = m > 0 and int(ranks.max()) + 1 > levels
+    n_ranks = int(ranks.max()) + 1 if m else 0
+    guarded = n_ranks > min(levels, MAX_RANKS)
+    tj = pick_tj(n_ranks) if tj is None else tj
+    _check_tiles(m, ti, tj)
 
     def count(p: torch.Tensor):
         if p.shape != y.shape:
@@ -161,19 +161,15 @@ def rank_counter(y: torch.Tensor, ti: int = TI, tj: int = TJ,
             return z, z.clone()
         if guarded:
             return counts_fused(p, y)
-        order, band, ps, yr, gt, lt = _prepare(p, ranks, ti, tj, levels)
-        c_s, d_s = sorted_counts(band, ps, yr, gt, lt, ti, tj)
-        c = torch.empty_like(c_s)
-        d = torch.empty_like(d_s)
-        c[order] = c_s
-        d[order] = d_s
+        ps, order = torch.sort(p, stable=True)
+        c, d, _ = counts_from_sort(ps, order, ranks, n_ranks, ti, tj)
         return c, d
 
     return count
 
 
 def rank_counts(p: torch.Tensor, y: torch.Tensor, ti: int = TI,
-                tj: int = TJ, levels: int = DEFAULT_LEVELS):
+                tj: int | None = None, levels: int = DEFAULT_LEVELS):
     """Fused (c, d) counts as int32 in one call: `rank_counter(y)(p)`."""
     if p.shape != y.shape or p.dim() != 1:
         raise ValueError(f'p and y must be 1-D of one length; got '
@@ -181,7 +177,7 @@ def rank_counts(p: torch.Tensor, y: torch.Tensor, ti: int = TI,
     return rank_counter(y, ti=ti, tj=tj, levels=levels)(p)
 
 
-def rank_counts_grouped(p, y, g, ti: int = TI, tj: int = TJ,
+def rank_counts_grouped(p, y, g, ti: int = TI, tj: int | None = None,
                         levels: int = DEFAULT_LEVELS):
     """Grouped (c, d) through the key-offset trick over `rank_counts`.
 

@@ -39,6 +39,22 @@ def _large_scrambled():
             rng.integers(0, 50, size=m).astype(np.float32))
 
 
+def _alphabet(k):
+    """k distinct utilities over m = 1037 (no tile divides it), scores on
+    a 0.25 grid."""
+    rng = np.random.default_rng(20 + k)
+    m = 1037
+    return ((rng.integers(-12, 13, size=m) * 0.25).astype(np.float32),
+            rng.permutation(np.arange(m) % k).astype(np.float32))
+
+
+def _half_grid():
+    """Scores on a 0.5 grid: many p_j equal p_i +- 1 exactly."""
+    rng = np.random.default_rng(31)
+    return ((rng.integers(-6, 7, size=999) * 0.5).astype(np.float32),
+            rng.integers(0, 5, size=999).astype(np.float32))
+
+
 CASES = {f'seeded-m{m}-{"ties" if th else "distinct"}': (_seeded, (m, th))
          for m in (1, 2, 3, 8, 33, 128) for th in (False, True)}
 CASES.update({
@@ -51,7 +67,13 @@ CASES.update({
         np.random.default_rng(6).integers(0, 5, size=400).astype(np.float64)),
         ()),
     'large-scrambled': (_large_scrambled, ()),
+    'all-scores-equal': (lambda: (np.full(517, 0.75, np.float32),
+                                  np.random.default_rng(2).integers(
+                                      0, 5, size=517).astype(np.float32)),
+                         ()),
+    'half-grid': (_half_grid, ()),
 })
+CASES.update({f'alphabet-{k}': (_alphabet, (k,)) for k in (1, 2, 5, 256, 257)})
 
 # Every port implementation of (p, y) -> (c, d) on CPU tensors.
 IMPLS = {

@@ -50,9 +50,11 @@ def _case(kind, m, seed=0):
     return p, y
 
 
-@pytest.mark.parametrize('m', [1, 127, 1025, 4096])
+@pytest.mark.parametrize('m', [1, 127, 1025, 4096, 8193, 20000])
 @pytest.mark.parametrize('kind', ['grid', 'halves', 'normal'])
 def test_pairwise_kernel_equals_plain(kind, m, cuda_device):
+    """m = 8193 and 20000 take several candidate splits, the first of
+    them ragged."""
     p, y = (torch.as_tensor(a, device=cuda_device) for a in _case(kind, m))
     before = PR.PAIRWISE.launches
     c, d = PR.pairwise_counts(p, y)
@@ -62,19 +64,116 @@ def test_pairwise_kernel_equals_plain(kind, m, cuda_device):
     assert torch.equal(c, cp) and torch.equal(d, dp)
 
 
+def _by_order(p, y):
+    ranks = RC._compact_ranks(y)
+    return (*torch.sort(p, stable=True), ranks, int(ranks.max()) + 1)
+
+
+def _equal_to_plain(args, ti, tj):
+    """The kernels' c, d and scratch (yr, planes, table) against the
+    plain version's on the same inputs, every tensor bit-equal."""
+    before = RC.RANK_COUNTS.launches
+    c, d, prep = RC.counts_from_sort(*args, ti, tj)
+    cp, dp, prepp = rank_counts_plain(*args, RC.pick_tj(args[3])
+                                      if tj is None else tj)
+    torch.cuda.synchronize()
+    assert RC.RANK_COUNTS.launches == before + 1
+    for a, b in zip((c, d, *prep), (cp, dp, *prepp)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 @pytest.mark.parametrize('ti,tj', [(256, 256), (64, 1024), (1024, 32)])
 @pytest.mark.parametrize('m', [1, 300, 5000, 70000])
 @pytest.mark.parametrize('kind', ['grid', 'halves', 'normal'])
 def test_rank_counts_kernel_equals_plain(kind, m, ti, tj, cuda_device):
     p, y = (torch.as_tensor(a, device=cuda_device) for a in _case(kind, m))
-    prep = RC._prepare(p, RC._compact_ranks(y), ti, tj, 256)[1:]
-    c, d = RC.sorted_counts(*prep, ti, tj)
-    cp, dp = rank_counts_plain(*prep, ti, tj)
-    torch.cuda.synchronize()
-    assert torch.equal(c, cp) and torch.equal(d, dp)
+    _equal_to_plain(_by_order(p, y), ti, tj)
     c, d = RC.rank_counts(p, y, ti=ti, tj=tj)
     cf, df = TC.counts_fused(p, y)
     assert torch.equal(c, cf) and torch.equal(d, df)
+
+
+@pytest.mark.parametrize('distinct', [1, 2, 5, 256, 257])
+def test_rank_counts_alphabets(distinct, cuda_device):
+    """The tables follow the alphabet (tj from `pick_tj`); 257 distinct
+    utilities pass the 256 levels and take the tree, with no launch."""
+    rng = np.random.default_rng(distinct)
+    m = 20011
+    p = torch.as_tensor((rng.integers(-40, 41, size=m) * 0.25).astype(
+        np.float32), device=cuda_device)
+    y = torch.as_tensor(rng.permutation(np.arange(m) % distinct).astype(
+        np.float32), device=cuda_device)
+    if distinct <= RC.DEFAULT_LEVELS:
+        _equal_to_plain(_by_order(p, y), RC.TI, None)
+    before = RC.RANK_COUNTS.launches
+    c, d = RC.rank_counts(p, y)
+    assert RC.RANK_COUNTS.launches == before + (distinct
+                                                <= RC.DEFAULT_LEVELS)
+    cf, df = TC.counts_fused(p, y)
+    assert torch.equal(c, cf) and torch.equal(d, df)
+
+
+@pytest.mark.parametrize('n_groups', [3, 40])
+def test_rank_counts_grouped_equals_tree(n_groups, cuda_device):
+    """Grouped counting through the key offsets: 3 groups of 4 grades
+    (one word a tile), 40 groups (160 ranks, tiles of four words)."""
+    rng = np.random.default_rng(n_groups)
+    m = 30000
+    p, y, g = (torch.as_tensor(a, device=cuda_device) for a in (
+        (rng.integers(-8, 9, size=m) * 0.5).astype(np.float32),
+        rng.integers(0, 4, size=m).astype(np.float32),
+        rng.integers(0, n_groups, size=m).astype(np.int32)))
+    before = RC.RANK_COUNTS.launches
+    c, d = RC.rank_counts_grouped(p, y, g)
+    assert RC.RANK_COUNTS.launches == before + 1
+    cf, df = TC.counts_grouped_fused(p, y, g)
+    assert torch.equal(c, cf) and torch.equal(d, df)
+
+
+def test_rank_counts_at_the_main_size(cuda_device):
+    """m = 2^20 with five grades and scores on a 0.25 grid (many ties at
+    p +- 1), against the tree."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(3)
+    m = 1 << 20
+    p = torch.randint(-400, 401, (m,), generator=g, device=cuda_device) * 0.25
+    y = torch.randint(0, 5, (m,), generator=g, device=cuda_device).float()
+    _equal_to_plain(_by_order(p, y), RC.TI, None)
+    c, d = RC.rank_counts(p, y)
+    cf, df = TC.counts_fused(p, y)
+    assert torch.equal(c, cf) and torch.equal(d, df)
+
+
+def test_rank_counter_makes_no_host_read_back(cuda_device):
+    """The call p -> (c, d) after the counter is built neither
+    synchronizes nor reads back (what a CUDA graph capture needs)."""
+    rng = np.random.default_rng(5)
+    p, y = (torch.as_tensor(a, device=cuda_device) for a in (
+        rng.normal(size=50000).astype(np.float32),
+        rng.integers(0, 5, size=50000).astype(np.float32)))
+    count = RC.rank_counter(y)
+    count(p)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        c, d = count(p)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    cf, df = TC.counts_fused(p, y)
+    assert torch.equal(c, cf) and torch.equal(d, df)
+
+
+def test_counting_kernels_are_deterministic(cuda_device):
+    """Each counting kernel twice on the same input gives the same bits."""
+    p, y = (torch.as_tensor(a, device=cuda_device)
+            for a in _case('halves', 20000))
+    first, second = PR.pairwise_counts(p, y), PR.pairwise_counts(p, y)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    args = _by_order(p, y)
+    first, second = RC.counts_from_sort(*args), RC.counts_from_sort(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(
+        (first[0], first[1], *first[2]), (second[0], second[1], *second[2])))
 
 
 @pytest.mark.parametrize('engine', ['tree', 'pallas', 'auto'])

@@ -38,6 +38,7 @@ from repro_torch.kernels.pairwise_rank import ops as PR  # noqa: E402
 from repro_torch.kernels.pairwise_rank.ref import (  # noqa: E402
     pairwise_counts_plain)
 from repro_torch.kernels.rank_counts import ops as RC  # noqa: E402
+from repro_torch.kernels.rank_counts import ref as RCR  # noqa: E402
 from torch_parity import n, t, torch_one_thread  # noqa: E402,F401
 
 
@@ -177,10 +178,12 @@ def test_rank_counts_tile_sweep(ti, tj, pallas_load):
     np.testing.assert_array_equal(n(d), n(dj))
 
 
-@pytest.mark.parametrize('m,n_groups', [(33, 3), (700, 7), (900, 90)])
+@pytest.mark.parametrize('m,n_groups', [(33, 3), (700, 7), (2000, 40),
+                                        (900, 90)])
 def test_rank_counts_grouped_matches_reference(m, n_groups):
-    """Grouped counting through the key offsets; 90 groups overflow the
-    levels and take the tree."""
+    """Grouped counting through the key offsets; 40 groups of four grades
+    (160 ranks) take tiles of four words, 90 groups overflow the levels
+    and take the tree."""
     rng = np.random.default_rng(11 + m)
     p = (rng.integers(-2, 3, size=m) * 0.5).astype(np.float32)
     y = rng.integers(0, 4, size=m).astype(np.float32)
@@ -199,19 +202,60 @@ def test_compact_ranks_match_reference():
                                   n(JRC._compact_ranks(jnp.asarray(y))))
 
 
-def test_prepared_bands_bound_every_frontier():
-    """The exactness argument, checked directly: for every query, the
-    whole tiles below c_lo lie inside its c margin and those from c_hi on
-    outside it; likewise for d."""
-    p, y = _grid(1500)
-    ranks = RC._compact_ranks(t(y))
-    ti, tj = 64, 32
-    order, band, ps, yr, gt, lt = RC._prepare(t(p), ranks, ti, tj, 256)
-    L = torch.searchsorted(ps, ps + 1.0, right=False)
-    R = torch.searchsorted(ps, ps - 1.0, right=True)
-    b = band.long()[torch.arange(ps.shape[0]) // ti]
-    assert bool((b[:, 0] * tj <= L).all()) and bool((L <= b[:, 1] * tj).all())
-    assert bool((b[:, 2] * tj <= R).all()) and bool((R <= b[:, 3] * tj).all())
+def _normal_scores(m=1500):
+    rng = np.random.default_rng(12)
+    return (rng.normal(size=m).astype(np.float32) * 2,
+            rng.integers(0, 5, size=m).astype(np.float32))
+
+
+@pytest.mark.parametrize('case', ['margin-grid', 'normal'])
+def test_prepared_frontiers_and_tables_match_brute_force(case):
+    """The exactness argument, checked directly: every query's frontiers
+    are the counts of the reference predicates over the sorted scores,
+    the table's rows are brute-force histograms of whole tiles, and the
+    bit planes spell the sorted ranks."""
+    p, y = _grid(1500) if case == 'margin-grid' else _normal_scores()
+    p, y = t(p), t(y)
+    ranks = RC._compact_ranks(y)
+    n_ranks = int(ranks.max()) + 1
+    ps, order = torch.sort(p, stable=True)
+    tj = 64
+    yr, planes, table = RCR.prepare_plain(ps, ranks, order, n_ranks, tj)
+    L, R = RCR.frontiers_plain(ps)
+    assert torch.equal(L, (ps[None, :] < (ps + 1.0)[:, None]).sum(1))
+    assert torch.equal(R, (ps[None, :] <= (ps - 1.0)[:, None]).sum(1))
+    assert torch.equal(ps, p[order]) and torch.equal(yr, ranks[order])
+    m = ps.shape[0]
+    for row in range(table.shape[1]):
+        below = yr[:min(row * tj, m)].long()
+        want = (below[:, None] <= torch.arange(n_ranks)).sum(0)
+        assert torch.equal(table[:, row].long(), want)
+    bits = (planes.long() & 0xFFFFFFFF)[torch.arange(m) // 32]
+    spelled = ((bits >> (torch.arange(m) % 32)[:, None]) & 1) << torch.arange(
+        planes.shape[1])
+    assert torch.equal(spelled.sum(1), yr.long())
+
+
+@pytest.mark.parametrize('distinct', [1, 2, 5, 256, 257])
+def test_rank_counts_alphabet_routes(distinct, monkeypatch):
+    """Up to the 256 levels the prepared path counts (its tile follows
+    the alphabet), past them the tree; both bit-equal to the reference."""
+    calls = []
+    plain, tree = RC.rank_counts_plain, RC.counts_fused
+    monkeypatch.setattr(RC, 'rank_counts_plain', lambda *a: calls.append(
+        ('plain', a[-1])) or plain(*a))
+    monkeypatch.setattr(RC, 'counts_fused', lambda p, y: calls.append(
+        ('tree', None)) or tree(p, y))
+    rng = np.random.default_rng(distinct)
+    m = 1037
+    p = (rng.integers(-12, 13, size=m) * 0.25).astype(np.float32)
+    y = rng.permutation(np.arange(m) % distinct).astype(np.float32)
+    cj, dj = JR.counts_ref(jnp.asarray(p), jnp.asarray(y))
+    c, d = RC.rank_counts(t(p), t(y))
+    np.testing.assert_array_equal(n(c), n(cj))
+    np.testing.assert_array_equal(n(d), n(dj))
+    assert calls == ([('plain', RC.pick_tj(distinct))] if distinct <= 256
+                     else [('tree', None)])
 
 
 def test_auto_tiering_switches_at_kernel_max_m(monkeypatch):
@@ -238,7 +282,8 @@ def test_auto_tiering_switches_at_kernel_max_m(monkeypatch):
         'pairwise', 'rank_counts', 'tree', 'tree']
 
 
-@pytest.mark.parametrize('m', [8, 5000], ids=['below', 'above'])
+@pytest.mark.parametrize('m', [8, PR.KERNEL_MAX_M + 1],
+                         ids=['below', 'above'])
 def test_auto_on_cpu_tensors_counts_with_the_tree(m, monkeypatch):
     """engine='auto' on CPU tensors runs `counts_fused`, as the
     reference's auto does off the TPU, on either side of KERNEL_MAX_M:
