@@ -48,7 +48,35 @@ line; any failure ends the run with a non-zero exit code:
            the tree at m = 2^10 .. 2^16, and the rank-counts call against
            the tree at m = 2^20 with 64, 256 and 1024 distinct utilities;
            all agree bit for bit at every point.
-9. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
+9. sparse  the paper's Reuters experiment at reuters_1m: `reuters_like`
+           from --seed (m = 2^20 CSR rows of 49152 tf-idf columns, 50
+           nonzeros a row, similarity utilities with r ~= m), features
+           resident on the card. `RankSVM(method='tree').fit` counts
+           with the tree (DEFAULT_LEVELS routes r ~= m there; no kernel
+           may launch); its counts at the fitted w equal the CPU tree's,
+           two oracle calls are bit-identical, and the device
+           transpose-matvec agrees with the host one (scipy's CSR loops)
+           within 1e-5. With a budget just above the features'
+           projected residency (plus the O(m) vectors and the counting
+           pass's peak, which the projection leaves out), method='auto'
+           keeps the fused oracle and allocates within that budget.
+           Then five grades cut at quantiles of the utilities:
+           engine='pallas' must launch the rank-counts kernel every
+           iteration and reach the tree engine's objective within eps;
+           and `method='auto'` on a 4096-row Reuters sample must launch
+           the pairwise kernel every iteration, its counts at the fitted
+           w equal to the CPU tree's.
+10. stream the same data streamed under memory_budget = 0.1953125 GiB
+           (half the features' 0.39 GiB on the card): method='auto' must
+           pick the streaming oracle; the bytes allocated on the card
+           above the phase's start (peak reset before each measured
+           call) stay within the budget at prefetch 0 and 1 for an
+           oracle call, and for the whole streamed fit (prefetch 1); the
+           two depths give bit-identical (loss, a) at one block size; the
+           streamed fit's objective is within eps of the resident one;
+           and five grades through the stream count with the
+           rank-counts kernel, inside the budget.
+11. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
            layers, d = 2560, 40 heads of 64, d_ff = 8960, vocab 65536),
            seeded random weights made on the card, wkv_impl='kernel':
            prefill of B = 8 prompts of T = 4096 tokens (a cut of the
@@ -62,7 +90,7 @@ line; any failure ends the run with a non-zero exit code:
            prefill tokens/s, decode ms per token, the kernel's ms per
            call, and profiler windows over a prefill and decode steps.
            It releases its model before the next phase.
-10. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
+12. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
            weights as in lm, wkv_impl='kernel', remat='layer', AdamW
            (f32 master, m, v): first the gradients at B = 1, T = 256, the
            kernel route against the scan route on the same weights, every
@@ -79,7 +107,7 @@ line; any failure ends the run with a non-zero exit code:
            kernels' share of its device time), and both WKV kernels' times
            at the training shape (N = 160; the forward writing
            boundaries).
-11. time   where an iteration's time goes at the main shapes (CUDA
+13. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
            bundle steps (device busy share, device operations per step).
@@ -117,6 +145,18 @@ GRADE_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
 LAM = 1e-3
 EPS = 1e-3
 MAX_ITER = 300                    # depth cut of the main fits
+# Profiler windows tried before a phase fails for want of device events.
+PROFILE_TRIES = 3
+# The rank-counts call's three kernels after the sort.
+RC_KERNELS = ('rc_gather', 'rc_scan', 'rc_count')
+# The paper's Reuters experiment at the reuters_1m shape (m = 2^20 as the
+# main cell, 49152 tf-idf columns, 50 nonzeros a row): the regularization
+# and the memory budget of the streamed cell (half the 0.39 GiB that the
+# features take resident), and the sparse 'auto' run's size.
+REUTERS_N, REUTERS_NNZ, REUTERS_TEST = 49152, 50, 4096
+SPARSE_LAM = 1e-5
+STREAM_BUDGET_GIB = 0.1953125
+AUTO_M = 4096
 # RWKV-6 serving (lm phase): prefill batch and length (prefill_32k is
 # 32 x 32768), greedy decode steps, and the consistency checks' shape.
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 4096, 32
@@ -166,11 +206,16 @@ def device_ms(torch, fn, name_part: str, reps: int) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return _device_busy(prof, name_part)[2] / 1e3 / reps
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        named = _device_busy(prof, name_part)[2]
+        if named > 0:
+            return named / 1e3 / reps
+    check(False, f'{PROFILE_TRIES} profiler windows saw no {name_part} '
+          'kernel')
 
 
 def mslr_like(torch, m: int, seed: int, dev):
@@ -539,6 +584,318 @@ def phase_sweep(ctx):
                 default_levels=RC.DEFAULT_LEVELS)
 
 
+def _graded(np, y):
+    """Five relevance grades cut from real-valued utilities at the
+    GRADE_SHARES quantiles (most documents least similar)."""
+    cum = np.cumsum(GRADE_SHARES)[:-1]
+    return np.digitize(y, np.quantile(y, cum)).astype(np.float32)
+
+
+def _iteration_split(ctx, oracle, w):
+    """CUDA-event times of one fused CSR step's three parts at w."""
+    torch = ctx['torch']
+    from repro_torch.kernels.platform import full_f32
+    feats, count = oracle._feats, oracle._counter()
+    with full_f32():
+        p = feats.matvec(w)
+        c, d = count(p)
+        v = (c - d).float() * oracle._inv_n_dev
+        return dict(matvec_ms=time_ms(torch, lambda: feats.matvec(w), 10),
+                    counting_ms=time_ms(torch, lambda: count(p), 5),
+                    rmatvec_ms=time_ms(torch, lambda: feats.rmatvec(v), 10))
+
+
+def phase_sparse(ctx):
+    """The paper's Reuters experiment at reuters_1m: CSR features resident
+    on the card, real-valued utilities through the tree, five grades
+    through the rank-counts kernel, and the 'auto' method's pairwise
+    kernel at m = 4096."""
+    torch, dev = ctx['torch'], ctx['dev']
+    import numpy as np
+    from repro_torch.core import counts as TC
+    from repro_torch.core.oracle import TreeOracle
+    from repro_torch.data import reuters_like
+    t0 = time.perf_counter()
+    data = reuters_like(m=M, m_test=REUTERS_TEST, n=REUTERS_N,
+                        nnz_per_row=REUTERS_NNZ, seed=ctx['seed'])
+    gen_s = time.perf_counter() - t0
+    ctx['reuters'] = data
+    X, y = data.X, data.y
+    kw = dict(lam=SPARSE_LAM, eps=EPS, max_iter=MAX_ITER)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    svm, rep = _fit(ctx, X, y, method='tree', **kw)
+    launches = _counts()
+    oracle = svm.oracle_
+    check(oracle._feats.kind == 'csr' and oracle._feats._uniform,
+          'the resident fit did not keep uniform CSR features')
+    res = dict(m=M, n=REUTERS_N, nnz=int(X.nnz), lam=SPARSE_LAM,
+               generate_seconds=gen_s,
+               distinct_utilities=int(np.unique(y.astype(np.float32)).size),
+               feature_bytes_on_device=sum(
+                   t.numel() * t.element_size() for t in (
+                       oracle._feats.data, oracle._feats.slot)),
+               max_memory_allocated_above_start=(
+                   torch.cuda.max_memory_allocated() - before),
+               launches=launches, iterations=rep.iterations,
+               converged=rep.converged, gap=rep.gap, solver=rep.solver,
+               objective=svm.objective(X, y), seconds=rep.seconds,
+               ms_per_iteration=1e3 * rep.seconds / rep.iterations)
+    ctx['sparse_objective'] = res['objective']
+    ctx['w_sparse'] = svm.w_
+    check(launches['rank_counts'] == 0 and launches['pairwise'] == 0,
+          'real-valued utilities at m = 2^20 reached a counting kernel; '
+          'DEFAULT_LEVELS routes them to the tree')
+    w = torch.as_tensor(svm.w_, dtype=torch.float32, device=dev)
+    res['iteration_split'] = _iteration_split(ctx, oracle, w)
+    # Counts on the card equal the CPU tree's at the fitted w.
+    from repro_torch.kernels.platform import full_f32
+    with full_f32():
+        p = oracle._feats.matvec(w)
+    c, d = TC.counts_fused(p, oracle._y)
+    t0 = time.perf_counter()
+    c_cpu, d_cpu = TC.counts_fused(p.cpu(), oracle._y.cpu())
+    res['cpu_tree_seconds'] = time.perf_counter() - t0
+    check(torch.equal(c.cpu(), c_cpu) and torch.equal(d.cpu(), d_cpu),
+          'tree counts on the card differ from the CPU tree')
+    res['counts_equal_cpu_tree'] = True
+    # The device transpose-matvec against the host one (scipy's CSR
+    # loops), and run to run bit-identity of the device one (exact
+    # fixed-point sums).
+    l1, a1 = oracle.loss_and_subgrad(w)
+    l2, a2 = oracle.loss_and_subgrad(w)
+    a1, a2 = (np.asarray(a.cpu() if torch.is_tensor(a) else a, np.float64)
+              for a in (a1, a2))
+    check(torch.equal(l1, l2) and np.array_equal(a1, a2),
+          'two calls of the resident CSR oracle differ')
+    host = TreeOracle(X, y, csr_rmatvec='host', device=dev)
+    lh, ah = host.loss_and_subgrad(w)
+    res['deterministic'] = True
+    res['loss_rel_err_vs_host_rmatvec'] = abs(float(l1) - float(lh)) / abs(
+        float(lh))
+    res['subgrad_rel_err_vs_host_rmatvec'] = float(
+        np.abs(a1 - ah).max() / np.abs(ah).max())
+    check(res['subgrad_rel_err_vs_host_rmatvec'] <= 1e-5,
+          'the device transpose-matvec differs from the host one')
+    del svm, oracle, host, p, c, d
+    res['fused_auto_memory'] = _fused_auto_memory(ctx, X, y, w)
+    # Five grades: the rank-counts kernel against the tree engine.
+    y5 = _graded(np, y)
+    ctx['reuters_graded'] = y5
+    _reset_counts()
+    svm_k, rep_k = _fit(ctx, X, y5, method='tree', engine='pallas', **kw)
+    launches_k = _counts()
+    check(launches_k['rank_counts'] >= rep_k.iterations,
+          f'rank-counts kernel launched {launches_k["rank_counts"]} times '
+          f'in {rep_k.iterations} iterations of the graded run')
+    _reset_counts()
+    svm_t, rep_t = _fit(ctx, X, y5, method='tree', engine='tree', **kw)
+    check(_counts()['rank_counts'] == 0, 'the tree engine launched a kernel')
+    j_k, j_t = svm_k.objective(X, y5), svm_t.objective(X, y5)
+    check(abs(j_k - j_t) <= EPS,
+          f'graded objectives differ: pallas {j_k} vs tree {j_t}')
+    res['graded'] = dict(
+        grades=len(GRADE_SHARES), launches=launches_k, objective_pallas=j_k,
+        objective_tree=j_t, objectives_equal=j_k == j_t)
+    for name, r in (('pallas', rep_k), ('tree', rep_t)):
+        res['graded'][name] = dict(
+            iterations=r.iterations, converged=r.converged, gap=r.gap,
+            ms_per_iteration=1e3 * r.seconds / r.iterations)
+    del svm_k, svm_t
+    # The 'auto' method at m = 4096: the pairwise kernel.
+    small = reuters_like(m=AUTO_M, m_test=1024, n=REUTERS_N,
+                         nnz_per_row=REUTERS_NNZ, seed=ctx['seed'] + 1)
+    _reset_counts()
+    svm_a, rep_a = _fit(ctx, small.X, small.y, method='auto', **kw)
+    launches_a = _counts()
+    check(launches_a['pairwise'] >= rep_a.iterations,
+          f'pairwise kernel launched {launches_a["pairwise"]} times in '
+          f'{rep_a.iterations} iterations of the sparse auto run')
+    # Its counts at the fitted w (one more launch, after the reading)
+    # equal the CPU tree's.
+    o_a = svm_a.oracle_
+    with full_f32():
+        p_a = o_a._feats.matvec(torch.as_tensor(svm_a.w_, dtype=torch.float32,
+                                                device=dev))
+    c_a, d_a = o_a._counter()(p_a)
+    c_t, d_t = TC.counts_fused(p_a.cpu(), o_a._y.cpu())
+    check(torch.equal(c_a.cpu().long(), c_t.long())
+          and torch.equal(d_a.cpu().long(), d_t.long()),
+          'the sparse auto run\'s pairwise counts differ from the CPU tree')
+    res['auto'] = dict(m=AUTO_M, launches=launches_a,
+                       iterations=rep_a.iterations,
+                       converged=rep_a.converged,
+                       objective_auto=svm_a.objective(small.X, small.y),
+                       counts_equal_cpu_tree=True,
+                       ms_per_iteration=1e3 * rep_a.seconds
+                       / rep_a.iterations)
+    return res
+
+
+def _fused_auto_memory(ctx, X, y, w):
+    """The memory model of method='auto' on the card: with a budget just
+    above what `projected_resident_gib` charges the features, plus what it
+    charges to both paths and so omits (the O(m) vectors, 24 m bytes as
+    the streaming rule reserves them, and the counting pass's own peak,
+    measured alone here), 'auto' keeps the fused oracle, and building it
+    and one call allocate within the budget."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.core import counts as TC
+    from repro_torch.core.oracle import PairwiseOracle, make_oracle
+    from repro_torch.data import projected_resident_gib
+    m = X.shape[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'])
+    yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    pd = torch.randn(m, generator=g, device=dev)
+    _, count_peak, _ = _peak_above(
+        torch, None, lambda: TC.make_counter(yd, None, engine='auto')(pd))
+    del yd, pd
+    proj = projected_resident_gib(X)
+    budget = int(proj * 2**30) + 24 * m + count_peak
+
+    def fused():
+        o = make_oracle(X, y, method='auto', memory_budget=budget / 2**30,
+                        device=dev)
+        check(isinstance(o, PairwiseOracle),
+              f'method=auto at the projection built {o.name}')
+        return o.loss_and_subgrad(w)
+
+    _, peak, _ = _peak_above(torch, None, fused)
+    check(peak <= budget, f'the fused CSR oracle allocated {peak} bytes, '
+          f'over the {budget}-byte budget at its projection')
+    return dict(projected_bytes=int(proj * 2**30), count_peak_bytes=count_peak,
+                budget_bytes=budget, max_memory_allocated_above_start=peak)
+
+
+def _peak_above(torch, base, fn):
+    """fn()'s result, the peak bytes allocated on the card during it above
+    `base` (the bytes allocated at the phase's start; None: at fn's
+    start), and fn's wall milliseconds."""
+    torch.cuda.synchronize()
+    if base is None:
+        base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated() - base,
+            1e3 * (time.perf_counter() - t0))
+
+
+def _stream_call_split(ctx, oracle, w):
+    """Where a streamed oracle call goes: its two host passes (numpy, by
+    the host's clock) and its counting pass on the card (CUDA events)."""
+    torch = ctx['torch']
+    import numpy as np
+    src, B, depth = oracle._src, oracle.block_rows, oracle.prefetch
+    t0 = time.perf_counter()
+    p = np.empty(oracle.m, np.float32)
+    for lo, hi, payload in src.iter_payloads(B, prefetch=depth):
+        p[lo:hi] = src._payload_matvec(payload, w)
+    t1 = time.perf_counter()
+    v = np.random.default_rng(ctx['seed']).normal(size=oracle.m) * 1e-9
+    for lo, hi, payload in src.iter_payloads(B, prefetch=depth):
+        src._payload_rmatvec(payload, v[lo:hi])
+    t2 = time.perf_counter()
+    count, pt = oracle._counter(), torch.as_tensor(p, device=ctx['dev'])
+    return dict(host_matvec_pass_ms=1e3 * (t1 - t0),
+                host_rmatvec_pass_ms=1e3 * (t2 - t1),
+                counting_ms=time_ms(torch, lambda: count(pt), 3))
+
+
+def phase_stream(ctx):
+    """Streamed CSR at reuters_1m under a memory budget of half the
+    features' fused residency: method='auto' must stream, the card's
+    allocations must stay inside the budget at prefetch 0 and 1, both
+    depths must give bit-identical (loss, a) at one block size, and the
+    streamed fit must reach the resident fit's objective within eps.
+    Five grades through the stream count with the rank-counts kernel."""
+    torch, dev = ctx['torch'], ctx['dev']
+    import numpy as np
+    from repro_torch.core.oracle import StreamingOracle, make_oracle
+    from repro_torch.data import projected_resident_gib
+    data = ctx['reuters']
+    X, y = data.X, data.y
+    budget_bytes = int(STREAM_BUDGET_GIB * 2**30)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    w_np = ctx['w_sparse']
+    res = dict(m=M, n=REUTERS_N, memory_budget_gib=STREAM_BUDGET_GIB,
+               memory_budget_bytes=budget_bytes,
+               projected_resident_gib=projected_resident_gib(X),
+               allocated_at_start=base)
+    peaks = {}
+    calls = {}
+    for depth in (0, 1):
+        o = make_oracle(X, y, method='auto', memory_budget=STREAM_BUDGET_GIB,
+                        prefetch=depth, device=dev)
+        check(isinstance(o, StreamingOracle) and o.name == 'stream/csr',
+              f'method=auto over budget built {o.name}')
+        out, peak, call_ms = _peak_above(torch, base,
+                                         lambda: o.loss_and_subgrad(w_np))
+        peaks[depth] = peak
+        calls[depth] = out
+        res[f'prefetch{depth}'] = dict(
+            block_rows=o.block_rows, n_blocks=o._nblk,
+            block_resident_bytes=o.block_resident_bytes(),
+            max_memory_allocated_above_start=peak, call_ms=call_ms)
+        check(peak <= budget_bytes,
+              f'prefetch {depth}: {peak} bytes on the card above the '
+              f'phase start, over the {budget_bytes}-byte budget')
+        if depth == 1:
+            b1 = o.block_rows
+            res['call_split'] = _stream_call_split(ctx, o, w_np)
+        del o
+    # Bit-identity across depths at one block size (the auto rule halves
+    # the block under double buffering, and a different partition sums a
+    # in another order).
+    o0 = StreamingOracle(X, y, block_rows=b1, prefetch=0, device=dev)
+    l0, a0 = o0.loss_and_subgrad(w_np)
+    l1, a1 = calls[1]
+    check(torch.equal(l0, l1) and np.array_equal(a0, a1),
+          'prefetch 0 and 1 differ at one block size')
+    res['prefetch_identical'] = True
+    del o0, calls
+    # The streamed fit, prefetch 1: the host driver over the host passes.
+    _reset_counts()
+    kw = dict(lam=SPARSE_LAM, eps=EPS, max_iter=MAX_ITER)
+    (svm, rep), peak, _ = _peak_above(torch, base, lambda: _fit(
+        ctx, X, y, method='stream', memory_budget=STREAM_BUDGET_GIB,
+        prefetch=1, **kw))
+    check(peak <= budget_bytes,
+          f'the streamed fit held {peak} bytes above the phase start')
+    j = svm.objective(X, y)
+    check(abs(j - ctx['sparse_objective']) <= EPS,
+          f'streamed objective {j} vs resident {ctx["sparse_objective"]}')
+    res['fit'] = dict(oracle=svm.oracle_.name, prefetch=1,
+                      block_rows=svm.oracle_.block_rows,
+                      max_memory_allocated_above_start=peak,
+                      launches=_counts(), iterations=rep.iterations,
+                      converged=rep.converged, gap=rep.gap,
+                      solver=rep.solver, seconds=rep.seconds,
+                      ms_per_iteration=1e3 * rep.seconds / rep.iterations,
+                      objective=j, objective_resident=ctx['sparse_objective'])
+    del svm
+    # Five grades through the stream: the rank-counts kernel counts.
+    y5 = ctx['reuters_graded']
+    _reset_counts()
+    o5 = StreamingOracle(X, y5, memory_budget=STREAM_BUDGET_GIB,
+                         prefetch=1, device=dev)
+    (l5, _), peak5, _ = _peak_above(torch, base,
+                                 lambda: o5.loss_and_subgrad(w_np))
+    launches5 = _counts()
+    check(launches5['rank_counts'] >= 1,
+          'the graded stream did not count with the rank-counts kernel')
+    check(peak5 <= budget_bytes,
+          f'the graded stream held {peak5} bytes above the phase start')
+    res['graded'] = dict(launches=launches5, loss=float(l5),
+                         max_memory_allocated_above_start=peak5)
+    return res
+
+
 def _rank_counts_row(ctx):
     """The rank-counts call at the main shapes: `ms` the device time of the
     kernels after the sort (one launcher call: gather, scan, count),
@@ -546,6 +903,7 @@ def _rank_counts_row(ctx):
     launch cost included), `wrapper_ms` the whole call p -> (c, d), with
     its device launches and busy share from the profiler."""
     torch, dev = ctx['torch'], ctx['dev']
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.rank_counts import ops as RC
     from repro_torch.kernels.rank_counts.ref import rank_counts_plain
@@ -570,14 +928,22 @@ def _rank_counts_row(ctx):
     count = RC.rank_counter(y)
     wrapper_ms = time_ms(torch, lambda: count(p), reps=20)
     calls = 10
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            count(p)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    busy, n_ops, _ = _device_busy(prof)
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                count(p)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        busy, n_ops, _ = _device_busy(prof)
+        seen = {e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA}
+        if all(any(k in name for name in seen) for k in RC_KERNELS):
+            break
+    else:
+        check(False, f'{PROFILE_TRIES} profiler windows over the '
+              f'rank-counts call missed one of {RC_KERNELS}')
     # The least the card could take is the function's own bytes: p and
     # the ranks read once, c and d written once (16 m). The tables are
     # the design's scratch, not the function's, so they do not enter the
@@ -592,7 +958,7 @@ def _rank_counts_row(ctx):
                 table_bytes=4 * (planes.numel() + table.numel()),
                 wrapper_ms=wrapper_ms,
                 device_launches_per_call=n_ops / calls,
-                call_device_busy_share=busy / wall_us if n_ops else None,
+                call_device_busy_share=busy / wall_us,
                 call_device_busy_ms=busy / 1e3 / calls,
                 top_kernels=_top_kernels(prof, k=8),
                 launches_per_iteration=ctx['launches']['rank_counts']
@@ -1232,7 +1598,8 @@ PHASES = (('build', phase_build), ('parity', phase_parity),
           ('wkv_parity', phase_wkv_parity),
           ('wkv_bwd_parity', phase_wkv_bwd_parity), ('main', phase_main),
           ('auto', phase_auto), ('guard', phase_guard),
-          ('sweep', phase_sweep), ('lm', phase_lm),
+          ('sweep', phase_sweep), ('sparse', phase_sparse),
+          ('stream', phase_stream), ('lm', phase_lm),
           ('train', phase_train), ('time', phase_time))
 
 

@@ -25,6 +25,8 @@ compiled again. Eager torch compiles nothing, so there is nothing to
 cache. Capturing a chunk in a CUDA graph is later work.
 
 `solver='auto'` picks the device driver when the oracle supports it and
+prefers it (`prefer_device_solver`: not for a CSR oracle whose
+transpose-matvec runs on the host, nor for a streamed CSR source), and
 eps is at or above the float32 noise floor.
 """
 
@@ -126,6 +128,7 @@ def bmrm(loss_and_subgrad: Union[Callable, object],
         use_device = True
     else:
         use_device = (solver == 'auto' and device_capable
+                      and getattr(oracle, 'prefer_device_solver', True)
                       and eps >= F32_EPS_FLOOR)
     if use_device and eps < F32_EPS_FLOOR:
         warnings.warn(f'eps={eps:g} is below the f32 noise floor of the '

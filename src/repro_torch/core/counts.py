@@ -52,73 +52,91 @@ def _pad(t: torch.Tensor, n: int, value: float) -> torch.Tensor:
                                     device=t.device)])
 
 
+def _index_dtype(mpad: int) -> torch.dtype:
+    """int32 positions while every padded position fits, else int64: the
+    searches and the totals then take half the memory."""
+    return torch.int32 if mpad < 2 ** 31 else _I64
+
+
 def _count_cmp_in_block(flat, base, t, block: int, strict: bool):
     """Branchless binary search: for each query q, the number of elements
     < t[q] (strict) or <= t[q] inside the sorted block
-    flat[base[q] : base[q] + block]. `block` is a power of two."""
+    flat[base[q] : base[q] + block]. `block` is a power of two. The
+    steps update their positions in place, so a search holds four
+    position-sized vectors beside its inputs."""
     cmp = torch.lt if strict else torch.le
     mmax = flat.shape[0] - 1
     i = torch.zeros_like(base)
+    idx = torch.empty_like(base)
     step = block // 2
     while step >= 1:
-        idx = torch.clamp(base + i + (step - 1), max=mmax)
-        i = i + cmp(flat[idx], t).to(_I64) * step
+        torch.add(base, i, out=idx)
+        idx.add_(step - 1).clamp_(max=mmax)
+        i.add_(cmp(flat[idx], t), alpha=step)
         step //= 2
-    idx = torch.clamp(base + i, max=mmax)
-    return i + cmp(flat[idx], t).to(_I64)
+    torch.add(base, i, out=idx)
+    idx.clamp_(max=mmax)
+    return i.add_(cmp(flat[idx], t))
 
 
-def _tree_levels(y_pad: torch.Tensor) -> dict:
-    """Merge-sort-tree levels: level b holds y_pad sorted inside aligned
-    blocks of 2^b, flattened. Level 0 is y_pad itself and is not stored."""
-    mpad = y_pad.shape[0]
-    nlev = mpad.bit_length() - 1
-    levels = {}
-    for b in range(1, nlev + 1):
-        block = 1 << b
-        levels[b] = torch.sort(y_pad.view(mpad // block, block),
-                               dim=1).values.reshape(-1)
-    return levels
+def _tree_level(y_pad: torch.Tensor, b: int) -> torch.Tensor:
+    """Level b of the merge-sort tree: y_pad sorted inside aligned blocks
+    of 2^b, flattened. Level 0 is y_pad itself."""
+    if b == 0:
+        return y_pad
+    block = 1 << b
+    return torch.sort(y_pad.view(-1, block), dim=1).values.view(-1)
 
 
-def _prefix_query(levels: dict, y_pad, prefix_len, thresholds, mode: str):
-    """For each query i over prebuilt levels:
+def _prefix_queries(y_pad, queries):
+    """Answer several prefix queries over one merge-sort tree, building
+    one level at a time: level b is sorted, every query takes its block
+    count there, and the level is freed before the next is built, so
+    one level (m floats) is alive instead of all log2(m) of them.
+
+    `queries` is a sequence of (prefix_len, thresholds, mode):
         mode 'gt': |{k < prefix_len[i] : y_seq[k] > thresholds[i]}|
         mode 'lt': |{k < prefix_len[i] : y_seq[k] < thresholds[i]}|
-    The prefix decomposes into one aligned block per set bit of its
-    length; each block answers with one binary search."""
+    prefix_len is an integer tensor (int32 where the positions fit);
+    each answer has its dtype. A prefix decomposes into one aligned
+    block per set bit of its length, and each block answers with one
+    binary search."""
     mpad = y_pad.shape[0]
     nlev = mpad.bit_length() - 1
-    total = torch.zeros_like(prefix_len)
+    totals = [torch.zeros_like(q[0]) for q in queries]
     for b in range(nlev + 1):
         block = 1 << b
-        bit = (prefix_len >> b) & 1
-        base = (prefix_len >> (b + 1)) << (b + 1)   # bits <= b cleared
-        if block == 1:
-            v = y_pad[torch.clamp(base, max=mpad - 1)]
-            cnt = ((v > thresholds) if mode == 'gt'
-                   else (v < thresholds)).to(_I64)
-        elif mode == 'gt':
-            cnt = block - _count_cmp_in_block(levels[b], base, thresholds,
-                                              block, strict=False)
-        else:
-            cnt = _count_cmp_in_block(levels[b], base, thresholds, block,
-                                      strict=True)
-        total = total + bit * cnt
-    return total
+        level = _tree_level(y_pad, b)
+        for total, (prefix_len, thresholds, mode) in zip(totals, queries):
+            bit = ((prefix_len >> b) & 1).bool()
+            base = prefix_len >> (b + 1)
+            base <<= b + 1                              # bits <= b cleared
+            if block == 1:
+                v = level[base.clamp_(max=mpad - 1)]
+                cnt = (v > thresholds) if mode == 'gt' else (v < thresholds)
+            elif mode == 'gt':
+                cnt = _count_cmp_in_block(level, base, thresholds, block,
+                                          strict=False).neg_().add_(block)
+            else:
+                cnt = _count_cmp_in_block(level, base, thresholds, block,
+                                          strict=True)
+            del base
+            total += cnt.mul_(bit)
+        del level
+    return totals
 
 
 def _prefix_count_greater(y_seq, prefix_len, thresholds):
     """For each query i: |{k < prefix_len[i] : y_seq[k] > thresholds[i]}|."""
     m = y_seq.shape[0]
     if m == 0:
-        return torch.zeros((0,), dtype=_I64, device=y_seq.device)
+        return torch.zeros((0,), dtype=prefix_len.dtype,
+                           device=y_seq.device)
     mpad = _next_pow2(m)
     # The pad value is irrelevant: prefix_len <= m, and every aligned
     # block of the decomposition lies inside [0, prefix_len).
     y_pad = _pad(y_seq, mpad - m, float('inf'))
-    return _prefix_query(_tree_levels(y_pad), y_pad, prefix_len, thresholds,
-                         'gt')
+    return _prefix_queries(y_pad, [(prefix_len, thresholds, 'gt')])[0]
 
 
 def _scatter_back(order, sorted_vals, m):
@@ -130,10 +148,11 @@ def _scatter_back(order, sorted_vals, m):
 def _half_counts(p, y):
     """c_i = |{j : y_j > y_i  and  p_j < p_i + 1}| in O(m log^2 m)."""
     m = p.shape[0]
-    order = torch.argsort(p, stable=True)
-    ps = p[order]
+    ps, order = torch.sort(p, stable=True)
     ys = y[order]
-    frontier = torch.searchsorted(ps, ps + 1.0, right=False)
+    frontier = torch.searchsorted(
+        ps, ps + 1.0, right=False,
+        out_int32=_index_dtype(_next_pow2(m)) == torch.int32)
     c_sorted = _prefix_count_greater(ys, frontier, ys)
     return _scatter_back(order, c_sorted, m)
 
@@ -151,24 +170,34 @@ def counts_fused(p: torch.Tensor, y: torch.Tensor):
 
     c counts y_k > y_i inside the frontier p_k < p_i + 1. d is the global
     strict y-rank of y_i minus the y_k < y_i inside the prefix
-    p_k <= p_i - 1, answered from the same tree."""
+    p_k <= p_i - 1, answered from the same tree.
+
+    Memory: 24 m bytes of vectors live through the tree queries (the
+    order, sorted utilities, both prefix lengths and both totals, all
+    32-bit below 2^31 positions), plus one tree level and the searches
+    or the sort that builds it; keeping every level alive at once would
+    add 4 m log2(m) bytes."""
     p, y = _f32(p), _f32(y)
     m = p.shape[0]
     if m == 0:
         z = torch.zeros((0,), dtype=torch.int32, device=p.device)
         return z, z.clone()
-    order = torch.argsort(p, stable=True)
-    ps = p[order]
-    ys = y[order]
     mpad = _next_pow2(m)
+    i32 = _index_dtype(mpad) == torch.int32
+    ps, order = torch.sort(p, stable=True)
+    ys = y[order]
+    if i32:
+        order = order.to(torch.int32)
+    frontier = torch.searchsorted(ps, ps + 1.0, right=False, out_int32=i32)
+    inner = torch.searchsorted(ps, ps - 1.0, right=True, out_int32=i32)
+    del ps
     y_pad = _pad(ys, mpad - m, float('inf'))
-    levels = _tree_levels(y_pad)
-    frontier = torch.searchsorted(ps, ps + 1.0, right=False)
-    c_sorted = _prefix_query(levels, y_pad, frontier, ys, 'gt')
-    inner = torch.searchsorted(ps, ps - 1.0, right=True)
-    lt_inner = _prefix_query(levels, y_pad, inner, ys, 'lt')
-    glt = torch.searchsorted(torch.sort(y).values, ys, right=False)
-    d_sorted = glt - lt_inner
+    c_sorted, d_sorted = _prefix_queries(
+        y_pad, [(frontier, ys, 'gt'), (inner, ys, 'lt')])
+    del frontier, inner, y_pad
+    # d = the global strict y-rank minus the lower y inside the prefix
+    d_sorted.neg_().add_(torch.searchsorted(torch.sort(y).values, ys,
+                                            right=False, out_int32=i32))
     return _scatter_back(order, c_sorted, m), _scatter_back(order, d_sorted,
                                                             m)
 

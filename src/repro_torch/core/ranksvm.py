@@ -1,14 +1,15 @@
 """RankSVM estimator: TreeRSVM (the paper's method) and PairRSVM (baseline).
 
 The counterpart of `repro.core.ranksvm.RankSVM` for the slice that is
-ported: dense features and the paper's hinge, methods 'tree', 'pairs'
-and 'auto', both BMRM drivers. `method=` picks the oracle
-(`core.oracle.make_oracle`), `engine=` its counting engine and `solver=`
-the BMRM driver (`core.bmrm`); the estimator itself touches no counting
-internals. The model trains on `device` (default 'cuda'); without a card
-that raises unless device='cpu' is given.
+ported: dense and CSR features, streamed features, the paper's hinge,
+methods 'tree', 'pairs', 'auto' and 'stream', both BMRM drivers.
+`method=` picks the oracle (`core.oracle.make_oracle`), `engine=` its
+counting engine and `solver=` the BMRM driver (`core.bmrm`); the
+estimator itself touches no counting internals. The model trains on
+`device` (default 'cuda'); without a card that raises unless
+device='cpu' is given.
 
-The regularization path, incremental refits and the serving helpers are
+method='sharded', the regularization path and incremental refits are
 not ported yet and raise NotImplementedError naming their ROADMAP.md
 item. `incremental_` stays None.
 """
@@ -24,6 +25,7 @@ import torch
 from ..kernels.platform import full_f32, resolve_device
 from . import rank_loss as _rank_loss
 from .bmrm import SOLVERS, bmrm
+from ..data.rowblocks import _validate_prefetch
 from .counts import _validate_block_rows, _validate_engine
 from .oracle import METHODS, _validate_loss, empirical_risk, make_oracle
 
@@ -47,8 +49,10 @@ class RankSVM:
       lam: regularization weight of J(w) = R_emp(w) + lam ||w||^2.
       eps: BMRM termination gap. Below `core.bmrm.F32_EPS_FLOOR` the
         solver='auto' choice is the float64 host driver.
-      method: 'tree' | 'pairs' | 'auto' ('sharded' and 'stream' raise
-        NotImplementedError).
+      method: 'tree' | 'pairs' | 'auto' | 'stream' ('sharded' raises
+        NotImplementedError). 'auto' streams when `memory_budget` is set
+        and the projected fused residency exceeds it, and always for an
+        np.memmap or a row-block source.
       loss: 'hinge' (the other losses raise NotImplementedError).
       engine: counting-engine override, None | 'tree' | 'blocked' |
         'pallas' (the rank-counts kernel) | 'auto' (the pairwise kernel up
@@ -56,6 +60,15 @@ class RankSVM:
       solver: 'host' | 'device' | 'auto'.
       max_iter, max_planes, sync_every, qp_iters, pair_block: BMRM and
         blocked-engine knobs.
+      memory_budget: GiB (float) for method='auto''s fused-versus-
+        streaming choice and the streaming oracle's block size; None
+        disables both.
+      stream_block: rows per block of the streaming oracle (default:
+        budget-derived, core.oracle._auto_stream_block).
+      prefetch: the streaming oracle's read-ahead depth (None/'auto' |
+        int >= 0; 'auto' double-buffers memmap sources); results are
+        bit-identical at any depth. Validated here, ignored by the fused
+        oracles.
       device: where the model trains, default 'cuda' (port only).
     """
 
@@ -64,8 +77,10 @@ class RankSVM:
                  pair_block: int = 2048, verbose: bool = False,
                  solver: str = 'auto', max_planes: int | None = None,
                  sync_every: 'int | str' = 8, qp_iters: int = 128,
-                 engine: str | None = None, loss: str = 'hinge',
-                 device=None):
+                 memory_budget: float | None = None,
+                 stream_block: int | None = None,
+                 engine: str | None = None, prefetch=None,
+                 loss: str = 'hinge', device=None):
         if method not in METHODS:
             raise ValueError(f'unknown method {method!r}; '
                              f'expected one of {METHODS}')
@@ -90,6 +105,13 @@ class RankSVM:
                            else int(sync_every))
         self.qp_iters = int(qp_iters)
         self.pair_block = _validate_block_rows(pair_block, 'pair_block')
+        self.memory_budget = (None if memory_budget is None
+                              else float(memory_budget))
+        self.stream_block = (None if stream_block is None
+                             else _validate_block_rows(stream_block,
+                                                       'stream_block'))
+        _validate_prefetch(prefetch)    # fail at construction, not fit
+        self.prefetch = prefetch
         self.verbose = verbose
         self.device = resolve_device(device)
         self.w_: np.ndarray | None = None
@@ -100,13 +122,18 @@ class RankSVM:
     # -- public API --------------------------------------------------------
 
     def fit(self, X, y, groups=None):
-        """Learn w from dense features X (m, n) and utility scores y.
+        """Learn w from features X (m, n) and utility scores y.
 
-        X and y may be numpy arrays or torch tensors (a float32 X already
-        on the device is used in place)."""
+        X is dense (numpy, or torch: a float32 X already on the device is
+        used in place), CSR (`data.sparse.CSRMatrix`, scipy, a torch
+        sparse tensor), an np.memmap or a `data.rowblocks` row-block
+        source; y is numpy or torch."""
         oracle = make_oracle(X, y, groups=groups, method=self.method,
                              loss=self.loss, engine=self.engine,
-                             pair_block=self.pair_block, device=self.device)
+                             pair_block=self.pair_block,
+                             memory_budget=self.memory_budget,
+                             stream_block=self.stream_block,
+                             prefetch=self.prefetch, device=self.device)
         self.oracle_ = oracle
         t0 = time.perf_counter()
         res = self._solve(oracle)
@@ -127,12 +154,16 @@ class RankSVM:
         """Scores X @ w in float64, as the reference's host matvec."""
         if self.w_ is None:
             raise RuntimeError('fit() first')
+        if hasattr(X, 'matvec'):            # data.sparse.CSRMatrix
+            return X.matvec(self.w_)
         if torch.is_tensor(X):
             w = torch.as_tensor(self.w_, dtype=torch.float64,
                                 device=X.device)
             with full_f32():
                 return (X.to(torch.float64) @ w).cpu().numpy()
-        return np.asarray(np.asarray(X) @ self.w_).ravel()
+        if not hasattr(X, '__matmul__'):
+            X = np.asarray(X)
+        return np.asarray(X @ self.w_).ravel()    # numpy, scipy CSR
 
     def predict(self, X) -> np.ndarray:
         return self.decision_function(X)

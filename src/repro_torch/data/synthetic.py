@@ -1,8 +1,11 @@
-"""Synthetic ranking datasets: the port's own copies of the two dense
-generators of `repro.data.synthetic` that this slice trains on.
+"""Synthetic ranking datasets: the port's own copies of the generators
+of `repro.data.synthetic` that the port trains on.
 
   * `cadata_like`  the paper's Cadata stand-in: 8 dense features,
     real-valued utilities (every score distinct);
+  * `reuters_like` the paper's Reuters RCV1 stand-in: sparse tf-idf rows
+    (`data.sparse.random_tfidf`) with utilities the similarity to one
+    removed target document, so r ~= m;
   * `ordinal_like` r-level ordinal utilities (graded relevance), the
     tie-heavy regime.
 
@@ -16,12 +19,14 @@ import dataclasses
 
 import numpy as np
 
+from .sparse import random_tfidf
+
 
 @dataclasses.dataclass
 class RankingData:
-    X: np.ndarray                # (m, n) features
+    X: object                    # (m, n) ndarray or CSRMatrix
     y: np.ndarray                # (m,) real-valued utilities
-    X_test: np.ndarray
+    X_test: object
     y_test: np.ndarray
     name: str
 
@@ -48,6 +53,21 @@ def cadata_like(m: int = 16000, m_test: int = 4000, seed: int = 0,
          + 0.3 * X[:, 2] ** 2
          + noise * rng.normal(size=total))
     return RankingData(X[:m], y[:m], X[m:], y[m:], 'cadata-like')
+
+
+def reuters_like(m: int = 64000, m_test: int = 20000, n: int = 49152,
+                 nnz_per_row: int = 50, seed: int = 0) -> RankingData:
+    """Sparse tf-idf features and similarity-to-target utilities: real
+    valued, with r ~= m distinct values, the regime where O(rm) methods
+    degrade to O(m^2) while the tree stays linearithmic."""
+    X = random_tfidf(m + m_test + 1, n, nnz_per_row, seed=seed)
+    target = X.row_slice(m + m_test, m + m_test + 1)   # the removed doc
+    tvec = np.zeros(n)
+    tvec[target.indices] = target.data
+    y = X.matvec(tvec)                                  # similarity scores
+    Xtr = X.rows(m)
+    Xte = X.row_slice(m, m + m_test)
+    return RankingData(Xtr, y[:m], Xte, y[m:m + m_test], 'reuters-like')
 
 
 def ordinal_like(m: int = 8000, m_test: int = 2000, n: int = 32,

@@ -148,6 +148,8 @@ def rank_counter(y: torch.Tensor, ti: int = TI, tj: int | None = None,
     ranks = _compact_ranks(y) if m else None
     n_ranks = int(ranks.max()) + 1 if m else 0
     guarded = n_ranks > min(levels, MAX_RANKS)
+    if guarded:
+        ranks = None        # the tree counts; hold no O(m) ranks for it
     tj = pick_tj(n_ranks) if tj is None else tj
     _check_tiles(m, ti, tj)
 

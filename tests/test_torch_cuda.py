@@ -2,8 +2,9 @@
 (the counting kernels bit for bit; the WKV forward kernel's states and
 the backward kernel's ds0 bit for bit, their other outputs within the
 tolerances below), a fit on the card against the same fit on the CPU,
-and the reduced RWKV-6 prefill and train step on the card against the
-CPU.
+the sparse and streamed oracles on the card (the tree's memory, the
+device transpose-matvec, the streaming budget and its determinism), and
+the reduced RWKV-6 prefill and train step on the card against the CPU.
 
 Every test here needs a CUDA device (Hopper, for the sm_90a kernels) and
 is marked `cuda`; without one it skips. This module imports neither JAX
@@ -187,6 +188,176 @@ def test_fit_on_the_card_matches_the_cpu(data, engine, cuda_device):
     j_card = on_card.objective(ds.X, ds.y)
     j_cpu = on_cpu.objective(ds.X, ds.y)
     assert abs(j_card - j_cpu) <= 1e-4
+
+
+# ------------------------------------------- sparse and streamed features
+
+
+def _peak_above_start(fn):
+    """fn()'s result and the peak bytes the card allocated during it above
+    what was allocated when it started."""
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - start
+
+
+def test_tree_counts_hold_one_level_at_a_time(cuda_device):
+    """At m = 2^20 the tree's counting pass allocates at most half of
+    what the streaming rule leaves after the O(m) vectors at the
+    reuters_1m budget, (0.1953125 GiB - 24 m) / 2 = 92,274,688 bytes (all
+    log2(m) levels at once took 197 MB); the counts stay the plain
+    version's."""
+    rng = np.random.default_rng(11)
+    m = 1 << 20
+    p = torch.as_tensor(rng.normal(size=m).astype(np.float32),
+                        device=cuda_device)
+    y = torch.as_tensor(rng.normal(size=m).astype(np.float32),
+                        device=cuda_device)
+    (c, d), peak = _peak_above_start(lambda: TC.counts_fused(p, y))
+    assert peak <= (int(0.1953125 * 2**30) - 24 * m) // 2
+    cc, dc = TC.counts_fused(p.cpu(), y.cpu())
+    assert torch.equal(c.cpu(), cc) and torch.equal(d.cpu(), dc)
+
+
+def _reuters(m, n=4096, seed=0):
+    from repro_torch.data import reuters_like
+    return reuters_like(m=m, m_test=16, n=n, nnz_per_row=50, seed=seed)
+
+
+def test_csr_oracle_on_the_card_matches_the_cpu(cuda_device):
+    """The device transpose-matvec (exact fixed-point sums) is
+    bit-identical run to run and agrees with the host one (scipy's CSR
+    loops); the ragged layout too."""
+    from repro_torch.core.oracle import TreeOracle
+    from repro_torch.data import CSRMatrix
+    data = _reuters(20000)
+    rng = np.random.default_rng(12)
+    w = rng.normal(size=data.n) * 0.1
+    card = TreeOracle(data.X, data.y, device=cuda_device)
+    assert card.prefer_device_solver and card._feats.device_rmatvec
+    (l1, a1), (l2, a2) = card.loss_and_subgrad(w), card.loss_and_subgrad(w)
+    assert torch.equal(l1, l2) and torch.equal(a1, a2)
+    host = TreeOracle(data.X, data.y, csr_rmatvec='host', device='cpu')
+    lh, ah = host.loss_and_subgrad(w)
+    assert abs(float(l1) - float(lh)) <= 1e-6 * abs(float(lh))
+    np.testing.assert_allclose(a1.double().cpu().numpy(), ah,
+                               rtol=1e-5, atol=1e-5 * np.abs(ah).max())
+    dense = rng.normal(size=(3000, 64)) * (rng.random((3000, 64)) < 0.2)
+    dense[0] = 0.0                                 # ragged rows
+    yr = rng.normal(size=3000)
+    wr = rng.normal(size=64)
+    ragged = TreeOracle(CSRMatrix.from_dense(dense), yr, device=cuda_device)
+    assert not ragged._feats._uniform
+    (l1, a1), (l2, a2) = (ragged.loss_and_subgrad(wr),
+                          ragged.loss_and_subgrad(wr))
+    assert torch.equal(l1, l2) and torch.equal(a1, a2)
+    lc, ac = TreeOracle(dense, yr, device='cpu').loss_and_subgrad(wr)
+    np.testing.assert_allclose(float(l1), float(lc), rtol=1e-5)
+    np.testing.assert_allclose(a1.cpu().numpy(), ac.numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_fused_csr_oracle_holds_the_projection(cuda_device):
+    """reuters_1m's shape (2^20 rows of 49152 columns, 50 nonzeros a
+    row): with a budget just above what `projected_resident_gib` charges
+    the features (8 bytes a nonzero), method='auto' keeps the fused
+    oracle, and building it and two calls allocate within that budget on
+    the card. "Just above" adds what the reference's model charges to
+    both paths and so omits: the O(m) vectors, 24 m bytes as the
+    streaming rule reserves them, and the counting pass, whose peak at
+    these utilities is measured alone first."""
+    from repro_torch.core.oracle import PairwiseOracle, make_oracle
+    from repro_torch.data import projected_resident_gib, random_tfidf
+    m = 1 << 20
+    X = random_tfidf(m=m, n=49152, nnz_per_row=50, seed=16)
+    rng = np.random.default_rng(16)
+    y = rng.normal(size=m).astype(np.float32)
+    yd = torch.as_tensor(y, device=cuda_device)
+    p = torch.as_tensor(rng.normal(size=m).astype(np.float32),
+                        device=cuda_device)
+    _, count_peak = _peak_above_start(
+        lambda: TC.make_counter(yd, None, engine='auto')(p))
+    del yd, p
+    proj = projected_resident_gib(X)
+    assert proj * 2**30 == 8 * X.nnz
+    budget = proj + (24 * m + count_peak) / 2**30
+    w = rng.normal(size=X.shape[1]) * 0.1
+
+    def build_and_call():
+        oracle = make_oracle(X, y, method='auto', memory_budget=budget,
+                             device=cuda_device)
+        assert isinstance(oracle, PairwiseOracle)
+        feats = oracle._feats
+        assert sum(t.numel() * t.element_size()
+                   for t in (feats.data, feats.slot)) == 8 * X.nnz
+        return [oracle.loss_and_subgrad(w) for _ in range(2)]
+
+    ((l1, a1), (l2, a2)), peak = _peak_above_start(build_and_call)
+    assert torch.equal(l1, l2) and torch.equal(a1, a2)
+    assert peak <= budget * 2**30, (peak, budget * 2**30, count_peak)
+
+
+@pytest.mark.parametrize('layout', ['csr', 'dense'])
+def test_stream_holds_its_budget_on_the_card(layout, cuda_device):
+    """Half the features' fused residency as the budget: method='auto'
+    streams, and an oracle call allocates no more than the budget on the
+    card at prefetch 0 and 1: the host passes for CSR (counting on the
+    card), the device step's slabs for dense."""
+    from repro_torch.core.oracle import StreamingOracle, make_oracle
+    from repro_torch.data import projected_resident_gib
+    m = 1 << 17
+    if layout == 'csr':
+        data = _reuters(m, n=2048)
+        X, y = data.X, data.y
+    else:
+        rng = np.random.default_rng(13)
+        X = rng.normal(size=(m, 256)).astype(np.float32)
+        y = X @ rng.normal(size=256) + rng.normal(size=m)
+    budget = projected_resident_gib(X) / 2
+    w = np.random.default_rng(14).normal(size=X.shape[1]) * 0.1
+    for depth in (0, 1):
+        o = make_oracle(X, y, method='auto', memory_budget=budget,
+                        prefetch=depth, device=cuda_device)
+        assert isinstance(o, StreamingOracle)
+        assert o.block_resident_bytes() <= budget * 2**30
+        if layout == 'csr':
+            _, peak = _peak_above_start(lambda: o.loss_and_subgrad(w))
+        else:
+            step = o.step_fn()
+            wt = torch.as_tensor(w, dtype=torch.float32, device=cuda_device)
+            _, peak = _peak_above_start(lambda: step(wt))
+        assert peak <= budget * 2**30, (depth, peak)
+
+
+@pytest.mark.parametrize('layout', ['csr', 'dense'])
+def test_stream_is_deterministic_at_both_depths(layout, cuda_device):
+    """Both surfaces give the same bits twice at each depth, and the same
+    bits at prefetch 0 and 1 for one block size."""
+    from repro_torch.core.oracle import StreamingOracle
+    rng = np.random.default_rng(15)
+    if layout == 'csr':
+        data = _reuters(30000, n=1024)
+        X, y = data.X, data.y
+    else:
+        X = rng.normal(size=(30000, 32)).astype(np.float32)
+        y = rng.normal(size=30000)
+    w = rng.normal(size=X.shape[1]) * 0.1
+    wt = torch.as_tensor(w, dtype=torch.float32, device=cuda_device)
+    host, dev = [], []
+    for depth in (0, 1):
+        o = StreamingOracle(X, y, block_rows=4096, prefetch=depth,
+                            device=cuda_device)
+        step = o.step_fn()
+        for _ in range(2):
+            host.append(o.loss_and_subgrad(w))
+            dev.append(step(wt))
+    for (l0, a0) in host[1:]:
+        assert torch.equal(l0, host[0][0]) and np.array_equal(a0, host[0][1])
+    for (l0, a0) in dev[1:]:
+        assert torch.equal(l0, dev[0][0]) and torch.equal(a0, dev[0][1])
 
 
 def _wkv_case(nn, tt, kk, dtype, dev, seed=0):

@@ -119,16 +119,19 @@ def test_empirical_risk_and_ranking_error_match_jax_package(case):
 
 
 def test_unported_arguments_name_their_roadmap_item():
+    """Unported losses and method='sharded' name their item; streamed and
+    sparse features (Queue 1 item 9) are ported and build their
+    oracles."""
     X = np.eye(3)
     y = np.arange(3.0)
     with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
         TO.make_oracle(X, y, loss='toppush', device='cpu')
     with pytest.raises(NotImplementedError, match='Queue 1 item 12'):
         TO.make_oracle(X, y, method='sharded', device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 9'):
-        TO.make_oracle(X, y, method='stream', device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 9'):
-        TO.make_oracle(torch.eye(3).to_sparse(), y, device='cpu')
+    assert isinstance(TO.make_oracle(X, y, method='stream', device='cpu'),
+                      TO.StreamingOracle)
+    assert TO.make_oracle(torch.eye(3).to_sparse(), y,
+                          device='cpu')._feats.kind == 'csr'
     with pytest.raises(ValueError, match='unknown loss'):
         TO.make_oracle(X, y, loss='hinj', device='cpu')
 

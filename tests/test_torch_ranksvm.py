@@ -174,7 +174,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             'repro_torch.kernels.wkv.ref, repro_torch.optim.adamw, '
             'repro_torch.optim.schedules, repro_torch.train.trainer, '
             'repro_torch.data.tokens, repro_torch.launch.train, '
-            'repro_torch.core.rank_loss; '
+            'repro_torch.core.rank_loss, repro_torch.core.oracle, '
+            'repro_torch.data.sparse, repro_torch.data.rowblocks, '
+            'repro_torch.data.synthetic; '
             "assert 'jax' not in sys.modules, 'the port pulled in jax'; "
             "assert 'repro' not in sys.modules, "
             "'the port pulled in the JAX package'")
