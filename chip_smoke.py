@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA H100: RankSVM training
-through the counting kernels, RWKV-6 serving through the WKV forward
-kernel, and RWKV-6 training through both WKV kernels.
+through the counting kernels, under each of its three losses, RWKV-6
+serving through the WKV forward kernel, and RWKV-6 training through both
+WKV kernels.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -76,7 +77,25 @@ line; any failure ends the run with a non-zero exit code:
            streamed fit's objective is within eps of the resident one;
            and five grades through the stream count with the
            rank-counts kernel, inside the budget.
-11. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
+11. losses the loss axis: the main data (m = 2^20, 136 features, five
+           grades) in 8192 queries of 128 consecutive rows (about
+           MSLR-WEB10K's documents per query). For 'toppush' and
+           'poshinge': one grouped oracle call on the card, bit-identical
+           twice, and its counting pass on the CPU on the same scores
+           (TopPush's coefficients bit-equal, the weighted d bit-equal
+           and c~ within 1e-6 of sum(v), the loss within 1e-6); then a
+           device-driver fit to eps = 1e-3 (max_iter 300), and
+           `top1_error` and `position_weighted_error` at its w on the
+           card and the CPU within 1e-6. engine='pallas' with
+           'poshinge' counts with the weighted tree (no counting kernel
+           launches) and equals engine='tree' bit for bit. reuters_1m
+           (the sparse phase's data, r ~= m) under 'poshinge': one
+           resident call and one streamed at memory_budget = 0.1953125
+           GiB, prefetch 1, inside the budget. The r-level baseline
+           (`core.joachims.counts_rlevel`) against the tree at m = 65536,
+           r = 2 .. 2048 (`benchmarks/fig6_rlevels.py --full`): counts
+           bit-equal, both times, and where they cross.
+12. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
            layers, d = 2560, 40 heads of 64, d_ff = 8960, vocab 65536),
            seeded random weights made on the card, wkv_impl='kernel':
            prefill of B = 8 prompts of T = 4096 tokens (a cut of the
@@ -90,7 +109,7 @@ line; any failure ends the run with a non-zero exit code:
            prefill tokens/s, decode ms per token, the kernel's ms per
            call, and profiler windows over a prefill and decode steps.
            It releases its model before the next phase.
-12. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
+13. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
            weights as in lm, wkv_impl='kernel', remat='layer', AdamW
            (f32 master, m, v): first the gradients at B = 1, T = 256, the
            kernel route against the scan route on the same weights, every
@@ -107,7 +126,7 @@ line; any failure ends the run with a non-zero exit code:
            kernels' share of its device time), and both WKV kernels' times
            at the training shape (N = 160; the forward writing
            boundaries).
-13. time   where an iteration's time goes at the main shapes (CUDA
+14. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
            bundle steps (device busy share, device operations per step).
@@ -157,6 +176,10 @@ REUTERS_N, REUTERS_NNZ, REUTERS_TEST = 49152, 50, 4096
 SPARSE_LAM = 1e-5
 STREAM_BUDGET_GIB = 0.1953125
 AUTO_M = 4096
+# The loss axis (losses phase): rows per query of the main data, and the
+# r-level sweep of benchmarks/fig6_rlevels.py --full.
+QUERY_ROWS = 128
+RLEVEL_M, RLEVELS = 65536, (2, 8, 32, 128, 512, 2048)
 # RWKV-6 serving (lm phase): prefill batch and length (prefill_32k is
 # 32 x 32768), greedy decode steps, and the consistency checks' shape.
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 4096, 32
@@ -421,11 +444,11 @@ def phase_wkv_bwd_parity(ctx):
     return out
 
 
-def _fit(ctx, X, y, **kw):
+def _fit(ctx, X, y, groups=None, **kw):
     from repro_torch.core.ranksvm import RankSVM
     torch = ctx['torch']
     torch.cuda.synchronize()
-    svm = RankSVM(device=ctx['dev'], **kw).fit(X, y)
+    svm = RankSVM(device=ctx['dev'], **kw).fit(X, y, groups)
     torch.cuda.synchronize()
     rep = svm.report_
     check(rep.iterations > 0 and math.isfinite(rep.objective),
@@ -894,6 +917,182 @@ def phase_stream(ctx):
     res['graded'] = dict(launches=launches5, loss=float(l5),
                          max_memory_allocated_above_start=peak5)
     return res
+
+
+def phase_losses(ctx):
+    """The loss axis on the card: 'toppush' and 'poshinge' at the main
+    shape in queries, the weighted tree's fallback for engine='pallas',
+    'poshinge' at reuters_1m resident and streamed, and the r-level
+    baseline against the tree."""
+    torch, dev = ctx['torch'], ctx['dev']
+    import numpy as np
+    from repro_torch.core import counts as TC
+    from repro_torch.core import oracle as TO
+    from repro_torch.core.rank_loss import position_weighted_error, top1_error
+    from repro_torch.kernels.platform import full_f32
+    X, y = ctx['X'], ctx['y']
+    g = torch.arange(M, device=dev) // QUERY_ROWS
+    w = torch.as_tensor(ctx['w_main'], dtype=torch.float32, device=dev)
+    with full_f32():
+        p = X @ w
+    pc, yc = p.cpu(), y.cpu()
+    res = dict(m=M, n=N_FEATURES, queries=M // QUERY_ROWS,
+               query_rows=QUERY_ROWS)
+    oracles = {}
+    for loss in ('toppush', 'poshinge'):
+        o = TO.make_oracle(X, y, groups=g, loss=loss, device=dev)
+        oracles[loss] = o
+        (l1, a1), call_peak, call_ms = _peak_above(
+            torch, None, lambda: o.loss_and_subgrad(w))
+        l2, a2 = o.loss_and_subgrad(w)
+        check(torch.equal(l1, l2) and torch.equal(a1, a2),
+              f'two {loss} calls on the card differ')
+        # its counting pass on the CPU, on the card's scores
+        count, inv_n, pw = o._counter(), o._inv_n_dev, o._pw
+        pwc = None if pw is None else pw.cpu()
+        count_c = TO._loss_counter(yc, o._g.cpu(), 'tree', 0, loss, pwc)
+        with full_f32():
+            (ld, cdd), pass_peak, _ = _peak_above(
+                torch, None, lambda: TO._loss_and_coeffs(p, count, inv_n,
+                                                         pw, loss))
+            pass_ms = time_ms(torch, lambda: TO._loss_and_coeffs(
+                p, count, inv_n, pw, loss), reps=3)
+        t0 = time.perf_counter()
+        lc, cdc = TO._loss_and_coeffs(pc, count_c, inv_n.cpu(), pwc, loss)
+        cpu_s = time.perf_counter() - t0
+        rel = abs(float(ld) - float(lc)) / abs(float(lc))
+        check(rel <= 1e-6, f'{loss} loss on the card vs the CPU: {rel}')
+        row = dict(norm=o.norm, loss=float(l1), loss_rel_err_vs_cpu=rel,
+                   call_ms=call_ms, call_peak_bytes=call_peak,
+                   pass_ms=pass_ms, pass_peak_bytes=pass_peak,
+                   cpu_pass_seconds=cpu_s, deterministic=True)
+        if loss == 'toppush':
+            check(torch.equal(cdd.cpu(), cdc),
+                  'TopPush coefficients differ card to CPU')
+            row['coefficients_equal_cpu'] = True
+        else:
+            (cw, d), (cwc, dc) = count(p), count_c(pc)
+            check(torch.equal(d.cpu(), dc), 'weighted d differs card to CPU')
+            err = float((cw.cpu() - cwc).abs().max())
+            check(err <= 1e-6 * float(pw.sum()),
+                  f'weighted c~ differs card to CPU by {err}')
+            row.update(d_equal_cpu=True, c_weighted_max_abs_err=err,
+                       sum_v=float(pw.sum()))
+        res[loss] = row
+    # engine='pallas' under 'poshinge': the weighted tree, no kernel
+    o = oracles['poshinge']
+    _reset_counts()
+    op = TO.make_oracle(X, y, groups=g, loss='poshinge', engine='pallas',
+                        device=dev)
+    lp, ap = op.loss_and_subgrad(w)
+    cwp, dp = TC.counts_dispatch(p, y, g, engine='pallas', v=o._pw)
+    launched = _counts()
+    check(launched['rank_counts'] == 0 and launched['pairwise'] == 0,
+          f'poshinge with engine=pallas launched {launched}')
+    lt, at = o.loss_and_subgrad(w)
+    cwt, dt = TC.counts_dispatch(p, y, g, engine='tree', v=o._pw)
+    check(torch.equal(lp, lt) and torch.equal(ap, at)
+          and torch.equal(cwp, cwt) and torch.equal(dp, dt),
+          'engine=pallas under poshinge differs from the weighted tree')
+    res['pallas_fallback'] = dict(launches=launched, equal_to_tree=True)
+    del op, oracles, o
+    # device-driver fits to eps, and the metrics at their w
+    for loss in ('toppush', 'poshinge'):
+        svm, rep = _fit(ctx, X, y, groups=g, lam=LAM, eps=EPS, method='tree',
+                        max_iter=MAX_ITER, loss=loss, solver='device')
+        wf = torch.as_tensor(svm.w_, dtype=torch.float32, device=dev)
+        with full_f32():
+            pf = X @ wf
+        metrics = {}
+        for name, fn in (('top1_error', top1_error),
+                         ('position_weighted_error', position_weighted_error)):
+            on_card = float(fn(pf, y, g))
+            on_cpu = float(fn(pf.cpu(), yc, g.cpu()))
+            check(abs(on_card - on_cpu) <= 1e-6,
+                  f'{name} at the {loss} fit: card {on_card}, CPU {on_cpu}')
+            metrics[name] = on_card
+        res[loss]['fit'] = dict(
+            iterations=rep.iterations, converged=rep.converged, gap=rep.gap,
+            solver=rep.solver, seconds=rep.seconds,
+            ms_per_iteration=1e3 * rep.seconds / rep.iterations,
+            objective=svm.objective(X, y, groups=g), **metrics)
+        del svm
+    del p, pc
+    res['reuters_poshinge'] = _reuters_poshinge(ctx)
+    res['rlevel'] = _rlevel_sweep(ctx)
+    return res
+
+
+def _reuters_poshinge(ctx):
+    """'poshinge' at reuters_1m (r ~= m, the weighted tree's case): one
+    resident call, and one streamed at STREAM_BUDGET_GIB, prefetch 1."""
+    torch, dev = ctx['torch'], ctx['dev']
+    import numpy as np
+    from repro_torch.core.oracle import (StreamingOracle, TreeOracle,
+                                         make_oracle)
+    data = ctx['reuters']
+    X, y, w = data.X, data.y, ctx['w_sparse']
+    budget_bytes = int(STREAM_BUDGET_GIB * 2**30)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    resident = TreeOracle(X, y, loss='poshinge', device=dev)
+    (lr, _), peak_r, ms_r = _peak_above(
+        torch, None, lambda: resident.loss_and_subgrad(w))
+    held = torch.cuda.memory_allocated() - base
+    del resident
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    so = make_oracle(X, y, method='auto', memory_budget=STREAM_BUDGET_GIB,
+                     loss='poshinge', prefetch=1, device=dev)
+    check(isinstance(so, StreamingOracle)
+          and so.name == 'stream/csr/poshinge',
+          f'method=auto over budget built {so.name}')
+    (ls, _), peak_s, ms_s = _peak_above(torch, base,
+                                       lambda: so.loss_and_subgrad(w))
+    check(peak_s <= budget_bytes,
+          f'the streamed poshinge call held {peak_s} bytes above its '
+          f'start, over the {budget_bytes}-byte budget')
+    rel = abs(float(ls) - float(lr)) / abs(float(lr))
+    check(rel <= 1e-5, f'streamed poshinge loss vs resident: {rel}')
+    return dict(m=M, distinct_utilities=int(np.unique(y).size),
+                resident=dict(loss=float(lr), call_ms=ms_r,
+                              oracle_bytes=held,
+                              call_peak_bytes_above_oracle=peak_r),
+                stream=dict(loss=float(ls), call_ms=ms_s,
+                            block_rows=so.block_rows, n_blocks=so._nblk,
+                            max_memory_allocated_above_start=peak_s,
+                            budget_bytes=budget_bytes),
+                loss_rel_err_stream_vs_resident=rel)
+
+
+def _rlevel_sweep(ctx):
+    """counts_rlevel against the tree at m = RLEVEL_M (CUDA events): bit
+    for bit at every r, and the first r at which the tree is faster."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.core import counts as TC
+    from repro_torch.core.joachims import counts_rlevel
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 21)
+    p = torch.randn(RLEVEL_M, generator=g, device=dev)
+    rows = []
+    for r in RLEVELS:
+        yl = torch.randint(0, r, (RLEVEL_M,), generator=g, device=dev,
+                           dtype=torch.int32)
+        yf = yl.float()
+        c, d = counts_rlevel(p, yl, r)
+        cf, df = TC.counts_fused(p, yf)
+        check(torch.equal(c, cf) and torch.equal(d, df),
+              f'r-level counts differ from the tree at r = {r}')
+        _, peak, _ = _peak_above(torch, None,
+                                 lambda: counts_rlevel(p, yl, r))
+        rows.append(dict(
+            r=r, rlevel_ms=time_ms(torch, lambda: counts_rlevel(p, yl, r),
+                                   reps=5),
+            tree_ms=time_ms(torch, lambda: TC.counts_fused(p, yf), reps=5),
+            rlevel_peak_bytes=peak))
+    slower = [row['r'] for row in rows if row['rlevel_ms'] > row['tree_ms']]
+    return dict(m=RLEVEL_M, rows=rows, counts_equal_tree=True,
+                tree_faster_from_r=min(slower, default=None))
 
 
 def _rank_counts_row(ctx):
@@ -1599,7 +1798,8 @@ PHASES = (('build', phase_build), ('parity', phase_parity),
           ('wkv_bwd_parity', phase_wkv_bwd_parity), ('main', phase_main),
           ('auto', phase_auto), ('guard', phase_guard),
           ('sweep', phase_sweep), ('sparse', phase_sparse),
-          ('stream', phase_stream), ('lm', phase_lm),
+          ('stream', phase_stream), ('losses', phase_losses),
+          ('lm', phase_lm),
           ('train', phase_train), ('time', phase_time))
 
 

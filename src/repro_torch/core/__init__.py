@@ -1,14 +1,19 @@
 # The paper's linearithmic RankSVM training on one device, in PyTorch
-# (dense, CSR and streamed features):
-#  - counts:    merge-sort-tree counts and the engine dispatch
+# (dense, CSR and streamed features; the hinge, toppush and poshinge
+# losses):
+#  - counts:    merge-sort-tree counts (weighted too) and the engine
+#               dispatch
+#  - joachims:  the r-level baseline (SVM^rank's O(rm) counts)
 #  - ref:       O(m^2) references
-#  - rank_loss: pairwise ranking error
+#  - rank_loss: ranking metrics and the differentiable pairwise hinge
 #  - qp/bmrm:   bundle-method optimizer (Algorithm 1)
 #  - oracle:    the BMRM oracle layer (tree/pairs/auto/grouped/stream)
 #  - ranksvm:   the estimator
-from . import bmrm, counts, oracle, qp, rank_loss, ranksvm, ref  # noqa: F401
+from . import (bmrm, counts, joachims, oracle, qp, rank_loss,  # noqa: F401
+               ranksvm, ref)
 from .oracle import (LOSSES, GroupedOracle, PairwiseOracle,  # noqa: F401
-                     RankOracle, StreamingOracle, TreeOracle,
+                     RankOracle, StreamingOracle, TopPushOracle, TreeOracle,
                      empirical_risk, make_oracle)
-from .rank_loss import ranking_error  # noqa: F401
+from .rank_loss import (poshinge_weights,  # noqa: F401
+                        position_weighted_error, ranking_error, top1_error)
 from .ranksvm import RankSVM  # noqa: F401

@@ -21,6 +21,11 @@ Tie semantics are the reference's, bit for bit:
   d_i = |{k : y_k < y_i}| - |{k : y_k < y_i and p_k <= p_i - 1}|, where
   `p_k <= p_i - 1` is the exact float complement of `p_k > p_i - 1`.
 
+The weighted tree of the position-weighted hinge (`counts_weighted_
+fused`, `make_counter(v=)`) carries one float32 prefix sum of the
+weights per level beside the sorted utilities, so its d is the tree's,
+bit for bit, and its c~ a float32 sum.
+
 float64 scores and utilities are cast to float32 first, which is what
 the JAX package's inputs undergo (it runs without 64-bit floats).
 Distinct float64 utilities can tie after the cast; the counts then tie
@@ -88,32 +93,66 @@ def _tree_level(y_pad: torch.Tensor, b: int) -> torch.Tensor:
     return torch.sort(y_pad.view(-1, block), dim=1).values.view(-1)
 
 
-def _prefix_queries(y_pad, queries):
+def _prefix_queries(y_pad, queries, v_pad=None):
     """Answer several prefix queries over one merge-sort tree, building
     one level at a time: level b is sorted, every query takes its block
     count there, and the level is freed before the next is built, so
     one level (m floats) is alive instead of all log2(m) of them.
 
     `queries` is a sequence of (prefix_len, thresholds, mode):
-        mode 'gt': |{k < prefix_len[i] : y_seq[k] > thresholds[i]}|
-        mode 'lt': |{k < prefix_len[i] : y_seq[k] < thresholds[i]}|
+        mode 'gt':  |{k < prefix_len[i] : y_seq[k] > thresholds[i]}|
+        mode 'lt':  |{k < prefix_len[i] : y_seq[k] < thresholds[i]}|
+        mode 'wgt': sum of v_seq[k] over {k < prefix_len[i] :
+                    y_seq[k] > thresholds[i]}, in float32
     prefix_len is an integer tensor (int32 where the positions fit);
-    each answer has its dtype. A prefix decomposes into one aligned
+    each count has its dtype. A prefix decomposes into one aligned
     block per set bit of its length, and each block answers with one
-    binary search."""
+    binary search. A 'wgt' query needs the weights `v_pad`: each level
+    then also sorts them with y (one stable sort inside the blocks,
+    and a gather of v by its indices) and takes one float32 cumsum per
+    block, so that a block answers with its total weight minus the
+    prefix sum at the search position; the indices are dropped before
+    the queries run, and the sums go with the level."""
     mpad = y_pad.shape[0]
     nlev = mpad.bit_length() - 1
-    totals = [torch.zeros_like(q[0]) for q in queries]
+    weighted = any(mode == 'wgt' for _, _, mode in queries)
+    totals = [torch.zeros(q[0].shape, dtype=torch.float32, device=q[0].device)
+              if q[2] == 'wgt' else torch.zeros_like(q[0]) for q in queries]
     for b in range(nlev + 1):
         block = 1 << b
-        level = _tree_level(y_pad, b)
+        wsum = None
+        if b == 0:
+            level, wsum = y_pad, v_pad
+        elif weighted:
+            level, idx = torch.sort(y_pad.view(-1, block), dim=1,
+                                    stable=True)
+            wsum = v_pad.view(-1, block).gather(1, idx)
+            del idx
+            wsum = wsum.cumsum_(dim=1).view(-1)
+            level = level.view(-1)
+        else:
+            level = _tree_level(y_pad, b)
         for total, (prefix_len, thresholds, mode) in zip(totals, queries):
             bit = ((prefix_len >> b) & 1).bool()
             base = prefix_len >> (b + 1)
             base <<= b + 1                              # bits <= b cleared
             if block == 1:
-                v = level[base.clamp_(max=mpad - 1)]
-                cnt = (v > thresholds) if mode == 'gt' else (v < thresholds)
+                base.clamp_(max=mpad - 1)
+                v = level[base]
+                if mode == 'wgt':
+                    cnt = torch.where(v > thresholds, wsum[base], 0.0)
+                else:
+                    cnt = (v > thresholds) if mode == 'gt' else (
+                        v < thresholds)
+            elif mode == 'wgt':
+                pos = _count_cmp_in_block(level, base, thresholds, block,
+                                          strict=False)
+                # total weight of the block minus the weight of its
+                # pos elements <= the threshold
+                cnt = wsum[(base + (block - 1)).clamp_(max=mpad - 1)]
+                lo = wsum[(base + pos - 1).clamp_(0, mpad - 1)]
+                cnt -= lo.mul_(pos > 0)
+                del pos, lo
             elif mode == 'gt':
                 cnt = _count_cmp_in_block(level, base, thresholds, block,
                                           strict=False).neg_().add_(block)
@@ -122,7 +161,7 @@ def _prefix_queries(y_pad, queries):
                                           strict=True)
             del base
             total += cnt.mul_(bit)
-        del level
+        del level, wsum
     return totals
 
 
@@ -139,9 +178,25 @@ def _prefix_count_greater(y_seq, prefix_len, thresholds):
     return _prefix_queries(y_pad, [(prefix_len, thresholds, 'gt')])[0]
 
 
-def _scatter_back(order, sorted_vals, m):
-    out = torch.empty((m,), dtype=torch.int32, device=order.device)
-    out[order] = sorted_vals.to(torch.int32)
+def _prefix_weighted_greater(y_seq, v_seq, prefix_lens, thresholds):
+    """For each prefix length vector L in `prefix_lens` and each query i:
+    the float32 sum of v_seq[k] over {k < L[i] : y_seq[k] > thresholds[i]},
+    all from one weighted tree (the weighted analogue of
+    `_prefix_count_greater`, for `rank_loss.position_weighted_error`)."""
+    m = y_seq.shape[0]
+    if m == 0:
+        return [torch.zeros((0,), dtype=torch.float32, device=y_seq.device)
+                for _ in prefix_lens]
+    mpad = _next_pow2(m)
+    y_pad = _pad(y_seq, mpad - m, float('inf'))
+    v_pad = _pad(v_seq.to(torch.float32), mpad - m, 0.0)
+    return _prefix_queries(y_pad, [(L, thresholds, 'wgt')
+                                   for L in prefix_lens], v_pad)
+
+
+def _scatter_back(order, sorted_vals, m, dtype=torch.int32):
+    out = torch.empty((m,), dtype=dtype, device=order.device)
+    out[order] = sorted_vals.to(dtype)
     return out
 
 
@@ -202,6 +257,13 @@ def counts_fused(p: torch.Tensor, y: torch.Tensor):
                                                             m)
 
 
+def lexsort(y, g):
+    """The stable order by g, then y (`jnp.lexsort((y, g))`): two stable
+    sorts, so equal keys keep their order."""
+    o1 = torch.sort(y, stable=True).indices
+    return o1[torch.sort(g[o1], stable=True).indices]
+
+
 def _group_offsets(p, y, g):
     """Per-group key offsets that make ONE global pass count within-group
     pairs only.
@@ -233,6 +295,79 @@ def counts_grouped_fused(p, y, g):
     p, y = _f32(p), _f32(y)
     pg, yg = _group_offsets(p, y, g)
     return counts_fused(pg, yg)
+
+
+def counts_weighted_fused(p: torch.Tensor, y: torch.Tensor,
+                          v: torch.Tensor):
+    """(c~, d) for the position-weighted hinge from ONE sort and ONE
+    weighted tree:
+
+        c~_i = sum of v_j over {j : y_j > y_i and p_j < p_i + 1}  (float32)
+        d_i  = |{j : y_j < y_i and p_j > p_i - 1}|                (int32)
+
+    A weighted pair carries the weight of its higher-utility side, so
+    only the c-side query is weighted; the caller scales d by each
+    example's own weight. d is `counts_fused`'s, bit for bit (the levels
+    hold the same sorted blocks). c~ is a float32 sum in another order
+    than the reference's: it agrees to about 1e-6 of sum(v).
+
+    Memory: `counts_fused`'s, plus the weights in p order (4 m bytes),
+    and while a level is built its float32 prefix sums and the sort's
+    int64 indices (12 m bytes); the levels go one at a time."""
+    p, y = _f32(p), _f32(y)
+    m = p.shape[0]
+    if m == 0:
+        return (torch.zeros((0,), dtype=torch.float32, device=p.device),
+                torch.zeros((0,), dtype=torch.int32, device=p.device))
+    mpad = _next_pow2(m)
+    i32 = _index_dtype(mpad) == torch.int32
+    ps, order = torch.sort(p, stable=True)
+    ys = y[order]
+    vs = v.to(torch.float32)[order]
+    if i32:
+        order = order.to(torch.int32)
+    frontier = torch.searchsorted(ps, ps + 1.0, right=False, out_int32=i32)
+    inner = torch.searchsorted(ps, ps - 1.0, right=True, out_int32=i32)
+    del ps
+    y_pad = _pad(ys, mpad - m, float('inf'))
+    v_pad = _pad(vs, mpad - m, 0.0)
+    del vs
+    cw_sorted, d_sorted = _prefix_queries(
+        y_pad, [(frontier, ys, 'wgt'), (inner, ys, 'lt')], v_pad)
+    del frontier, inner, y_pad, v_pad
+    d_sorted.neg_().add_(torch.searchsorted(torch.sort(y).values, ys,
+                                            right=False, out_int32=i32))
+    return (_scatter_back(order, cw_sorted, m, torch.float32),
+            _scatter_back(order, d_sorted, m))
+
+
+def counts_weighted_grouped_fused(p, y, g, v):
+    """Grouped (c~, d) through the key offsets: a cross-group element
+    fails the margin or the preference test, so its weight enters no
+    c~ sum; the weights ride along unchanged."""
+    p, y = _f32(p), _f32(y)
+    pg, yg = _group_offsets(p, y, g)
+    return counts_weighted_fused(pg, yg, v)
+
+
+def counts_blocked_weighted(p, y, v, block: int = 2048):
+    """O(m^2) weighted (c~, d) with O(m * block) memory: the blocked
+    engine's counterpart of `counts_weighted_fused`."""
+    p, y = _f32(p), _f32(y)
+    v = v.to(torch.float32)
+    m = p.shape[0]
+    cw = torch.zeros((m,), dtype=torch.float32, device=p.device)
+    d = torch.zeros((m,), dtype=_I64, device=p.device)
+    hi = (p + 1.0)[:, None]
+    lo = (p - 1.0)[:, None]
+    yi = y[:, None]
+    for j0 in range(0, m, block):
+        pj = p[None, j0:j0 + block]
+        yj = y[None, j0:j0 + block]
+        cw += torch.where((yj > yi) & (pj < hi), v[None, j0:j0 + block],
+                          0.0).sum(dim=1)
+        d += ((yj < yi) & (pj > lo)).sum(dim=1)
+    return cw, d.to(torch.int32)
 
 
 def counts_grouped(p, y, g):
@@ -329,7 +464,7 @@ def _validate_engine(engine: str) -> None:
                          f'expected one of {ENGINES}')
 
 
-def make_counter(y, g, engine: str = 'tree', block: int = 2048):
+def make_counter(y, g, engine: str = 'tree', block: int = 2048, v=None):
     """`p -> (c, d)` for fixed utilities y (and group ids g, or None): the
     counting core every oracle shares, with the engine picked by `engine`.
 
@@ -346,11 +481,24 @@ def make_counter(y, g, engine: str = 'tree', block: int = 2048):
     utility keys are made here, the score keys on each call. What depends
     on y alone (the kernels' rank compression and level guard, with its
     read-back) is done here once, so an oracle that keeps its counter
-    pays it once per fit."""
+    pays it once per fit.
+
+    v (per-example float weights, or None) makes the counter weighted,
+    for the position-weighted hinge: `p -> (c~, d)` with c~ the float32
+    weighted sums of `counts_weighted_fused`. 'blocked' runs the weighted
+    pairwise pass; the counting kernels have no weighted variant, so
+    'pallas' and 'auto' fall back to the weighted tree, as the reference
+    does (an unweighted kernel would compute another objective)."""
     _validate_engine(engine)
     if engine == 'blocked':
         block = _validate_block_rows(block, 'counts_dispatch block')
-    if engine == 'tree':
+    if engine == 'tree' or (v is not None and engine != 'blocked'):
+        if v is not None:
+            if g is None:
+                return lambda p: counts_weighted_fused(p, y, v)
+            yk = _offset_utilities(y, g)
+            return lambda p: counts_weighted_fused(
+                _offset_scores(_f32(p), g), yk, v)
         if g is None:
             return lambda p: counts_fused(p, y)
         return lambda p: counts_grouped_fused(p, y, g)
@@ -361,6 +509,9 @@ def make_counter(y, g, engine: str = 'tree', block: int = 2048):
     elif engine == 'pallas':
         from ..kernels.rank_counts import ops as _rc_ops
         count = _rc_ops.rank_counter(yk)
+    elif v is not None:
+        def count(p):
+            return counts_blocked_weighted(p, yk, v, block=block)
     else:
         def count(p):
             return counts_blocked_host(p, yk, block=block)
@@ -371,13 +522,7 @@ def make_counter(y, g, engine: str = 'tree', block: int = 2048):
 
 def counts_dispatch(p, y, g, engine: str = 'tree', block: int = 2048,
                     v=None):
-    """(c, d) by `engine` in one call: `make_counter(y, g, engine,
-    block)(p)`. g is None for ungrouped counting.
-
-    Weighted counting (`v=`) belongs to the loss axis, not ported yet."""
-    _validate_engine(engine)
-    if v is not None:
-        raise NotImplementedError(
-            'weighted counting (v=) is not ported yet: ROADMAP.md Queue 1 '
-            'item 7 (the loss axis)')
-    return make_counter(y, g, engine=engine, block=block)(p)
+    """(c, d), or (c~, d) with weights `v`, by `engine` in one call:
+    `make_counter(y, g, engine, block, v)(p)`. g is None for ungrouped
+    counting."""
+    return make_counter(y, g, engine=engine, block=block, v=v)(p)

@@ -18,8 +18,13 @@ keeps only O(m) vectors on the device and streams the features through
 two chunked passes over a row-block source (`data.rowblocks`, DESIGN.md
 §6); the counting pass between them runs on the device.
 
-The paper's hinge is ported; the other losses raise NotImplementedError
-naming their ROADMAP.md item, as does method='sharded'.
+Every oracle carries the loss axis (DESIGN.md §12) through one counting
+core, `_loss_and_coeffs`: the paper's hinge ('hinge', coefficients c - d
+over the N pairs), the position-weighted hinge ('poshinge', the weighted
+counts c~ - v d over the pair weight W) and the top-rank loss
+('toppush', one sorted pass and no frequency vectors, over the anchored
+count N+). method='sharded' raises NotImplementedError naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -41,20 +46,77 @@ f32 = torch.float32
 LOSSES = ('hinge', 'toppush', 'poshinge')
 METHODS = ('tree', 'pairs', 'auto', 'sharded', 'stream')
 
-_NOT_PORTED_LOSS = 'ROADMAP.md Queue 1 item 7 (the loss axis)'
 _NOT_PORTED_METHOD = {
     'sharded': 'ROADMAP.md Queue 1 item 12 (multi-device)',
 }
 
 
 def _validate_loss(loss: str) -> None:
-    """Reject an unknown loss name; a known loss this slice does not
-    carry raises NotImplementedError."""
+    """Reject an unknown loss name before any oracle is built."""
     if loss not in LOSSES:
         raise ValueError(f'unknown loss {loss!r}; expected one of {LOSSES}')
-    if loss != 'hinge':
-        raise NotImplementedError(
-            f'loss={loss!r} is not ported yet: {_NOT_PORTED_LOSS}')
+
+
+def _group_members(groups):
+    """Each group's example indices, in ascending group order and, inside
+    a group, in the examples' order: what the reference's `groups == u`
+    masks select, from one stable sort instead of one pass over m per
+    group (8192 queries of 128 rows would take 2^33 compares)."""
+    groups = np.asarray(groups)
+    order = np.argsort(groups, kind='stable')
+    cuts = np.flatnonzero(np.diff(groups[order])) + 1
+    return np.split(order, cuts) if order.size else []
+
+
+def _toppush_norm(y: np.ndarray, groups) -> int:
+    """The exact count of ANCHORED examples, those with a strictly lower
+    utility in their group: the TopPush normalizer N+."""
+    y = np.asarray(y)
+    if y.size == 0:
+        return 0
+    if groups is None:
+        return int(np.sum(y > y.min()))
+    return int(sum(np.sum(y[i] > y[i].min()) for i in _group_members(groups)))
+
+
+def _poshinge_weights_norm(y: np.ndarray, groups):
+    """(v, W) of the position-weighted hinge, exact on the host:
+    v_i = 1 / log2(1 + rank_i), rank_i = |{k in group : y_k > y_i}| + 1,
+    and W = the sum over preference pairs (i, j), y_i < y_j, of v_j.
+    O(m log m): one sort and two searches per group."""
+    y = np.asarray(y, np.float64)
+    m = y.shape[0]
+    v = np.zeros(m)
+    W = 0.0
+    members = ([np.arange(m)] if groups is None
+               else _group_members(np.asarray(groups, np.int64)))
+    for idx in members:
+        yy = y[idx]
+        ys = np.sort(yy)
+        rank = (yy.shape[0] - np.searchsorted(ys, yy, side='right')) + 1
+        vv = 1.0 / np.log2(1.0 + rank)
+        v[idx] = vv
+        lower = np.searchsorted(ys, yy, side='left')   # strictly lower
+        W += float(np.sum(vv * lower))
+    return v, W
+
+
+def _loss_norm_weights(y, groups, loss: str):
+    """(norm, v): the loss's exact normalizer and its per-example weights
+    (float64 numpy for 'poshinge', else None).
+
+      'hinge'     N  = the preference pairs
+      'toppush'   N+ = the anchored examples
+      'poshinge'  W  = the pairs' weight, with v
+
+    The three vanish together (each needs a within-group pair of unequal
+    utilities), so the oracles' no-pairs check covers every loss."""
+    if loss == 'toppush':
+        return _toppush_norm(y, groups), None
+    if loss == 'poshinge':
+        v, W = _poshinge_weights_norm(y, groups)
+        return W, v
+    return _exact_pairs(y, groups), None
 
 
 class RankOracle:
@@ -63,7 +125,9 @@ class RankOracle:
     Attributes:
       m, n: examples and features.
       n_pairs: exact number of preference pairs N (host int).
-      norm: the loss normalizer (N for the hinge).
+      norm: the loss normalizer: N for the hinge, the anchored count N+
+        for 'toppush', the pair weight W for 'poshinge'
+        (`_loss_norm_weights`).
       device: the torch device the oracle computes on.
       device_resident: True when `loss_and_subgrad` returns tensors on
         `device`; BMRM then keeps its planes there.
@@ -98,9 +162,8 @@ class RankOracle:
 def _exact_pairs(y: np.ndarray, groups) -> int:
     if groups is None:
         return _counts.num_pairs_host(y)
-    groups = np.asarray(groups)
-    return int(sum(_counts.num_pairs_host(y[groups == u])
-                   for u in np.unique(groups)))
+    return int(sum(_counts.num_pairs_host(y[i])
+                   for i in _group_members(groups)))
 
 
 def _validate_groups(groups, m: int) -> np.ndarray:
@@ -164,13 +227,54 @@ def _as_numpy(a, dtype) -> np.ndarray:
 
 # Replicas of the transpose-matvec's accumulator: row r adds into replica
 # r % R, so a column that many rows share (tf-idf's common terms) takes R
-# times fewer atomic adds on one address.
+# times fewer atomic adds on one address. Each replica is a float64 copy
+# of the output, 8 n bytes; under a memory budget R shrinks to fit
+# (`csr_replicas`).
 RMATVEC_REPLICAS = 64
 # Nonzeros per chunk of the CSR products. A chunk's temporaries (about 24
 # bytes a nonzero in the transpose-matvec) stay near 50 MB at any size, so
 # a fused CSR oracle holds its features, 8 bytes a nonzero (12 with ragged
 # rows) as `data.rowblocks.projected_resident_gib` charges, plus O(m + n).
 CSR_CHUNK_NNZ = 2**21
+# What the transpose-matvec holds per column besides its replicas: the
+# column bounds (8 bytes, resident) and, while its exact sum is set up
+# and read out, the bounds, exponents and scales (at most 36 bytes).
+RMATVEC_COLUMN_BYTES = 48
+# The O(m) vectors a call holds beside its counting pass (scores, labels,
+# coefficients, weights), as the streaming rule reserves them.
+VECTOR_BYTES = 24
+
+
+def _csr_layout(X):
+    """(m, n, nnz, bytes a nonzero, nonzeros of the largest chunk) of a
+    CSR input, as `_CSRFeatures` lays it out."""
+    X = _rowblocks.as_csr_matrix(X)
+    m, n = map(int, X.shape)
+    lens = np.diff(np.asarray(X.indptr, np.int64))
+    nnz = int(lens.sum())
+    uniform = bool(m > 0 and np.all(lens == lens[0]) and lens[0] > 0)
+    widest = int(lens.max()) if m else 0
+    return (m, n, nnz, 8 if uniform else 12,
+            min(nnz, max(CSR_CHUNK_NNZ, widest)))
+
+
+def csr_replicas(m: int, n: int, nnz: int, nnz_bytes: int, chunk_nnz: int,
+                 memory_budget=None) -> int:
+    """The accumulator replicas of a fused CSR oracle's transpose-matvec.
+
+    Without a budget: `RMATVEC_REPLICAS`, capped by m and by 2^31 slots.
+    With one (GiB): as many as fit, 8 n bytes each, in what the budget
+    leaves after the features (`nnz_bytes` a nonzero, what
+    `projected_resident_gib` charges), the O(m) vectors, the per-column
+    state and a chunk's temporaries; 0 when not even one does. The
+    counting pass is over when the transpose-matvec runs (the step frees
+    its temporaries first), so the two share the budget's remainder."""
+    cap = max(1, min(RMATVEC_REPLICAS, m, (2**31 - 1) // max(n, 1)))
+    if memory_budget is None:
+        return cap
+    left = (float(memory_budget) * 2**30 - nnz_bytes * nnz
+            - VECTOR_BYTES * m - RMATVEC_COLUMN_BYTES * n - 24 * chunk_nnz)
+    return max(0, min(cap, int(left // (8 * max(n, 1)))))
 
 
 class _ExactSum:
@@ -247,7 +351,8 @@ class _CSRFeatures:
 
     kind = 'csr'
 
-    def __init__(self, X, device: torch.device, csr_rmatvec: str = 'auto'):
+    def __init__(self, X, device: torch.device, csr_rmatvec: str = 'auto',
+                 memory_budget=None):
         if csr_rmatvec == 'auto':
             csr_rmatvec = 'host' if device.type == 'cpu' else 'device'
         if csr_rmatvec not in ('host', 'device'):
@@ -262,8 +367,10 @@ class _CSRFeatures:
         lens = np.diff(indptr)
         self._uniform = bool(self.m > 0 and np.all(lens == lens[0])
                              and lens[0] > 0)
-        self._replicas = max(1, min(RMATVEC_REPLICAS, self.m,
-                                    (2**31 - 1) // max(self.n, 1)))
+        # A budget too small for one replica still gets one: 'auto'
+        # streams such inputs instead (`make_oracle`).
+        self._replicas = max(1, csr_replicas(*_csr_layout(X),
+                                             memory_budget=memory_budget))
         slot = (indices + (X._rows % self._replicas) * self.n).astype(
             np.int32)
         if self._uniform:
@@ -328,25 +435,109 @@ class _CSRFeatures:
         return self._host.rmatvec(v)
 
 
-def _features(X, device: torch.device, csr_rmatvec: str = 'auto'):
+def _features(X, device: torch.device, csr_rmatvec: str = 'auto',
+              memory_budget=None):
     if _rowblocks.is_sparse_input(X):
-        return _CSRFeatures(X, device, csr_rmatvec=csr_rmatvec)
+        return _CSRFeatures(X, device, csr_rmatvec=csr_rmatvec,
+                            memory_budget=memory_budget)
     return _DenseFeatures(X, device)
 
 
-def _loss_and_coeffs(p, count, inv_n):
-    """Scores -> (R_emp, subgradient coefficients c - d) for the hinge:
-    one counting pass (`count`, a `counts.make_counter` counter) and the
-    Lemma 1/2 formula."""
+def _toppush_loss_coeffs(p, y, g, inv_n):
+    """The TopPush-style top-rank loss and its subgradient coefficients in
+    one sorted pass, with no frequency vectors (DESIGN.md §12).
+
+    Each ANCHORED example i (one with a strictly lower utility in its
+    group) pays its margin against the highest score of that lower set:
+
+        R(w) = (1/N+) sum_i hinge(1 + M_i - p_i),
+        M_i  = max{p_k : g_k = g_i, y_k < y_i}
+
+    One stable sort by (g, y) makes every lower set a prefix of its
+    group's segment. M is a segmented running max: `torch.cummax` of an
+    int64 key, the segment's start times m plus the score's stable rank,
+    so a segment's keys exceed every earlier segment's. The coefficients
+    put -1 on each active example and +1 on the LEFTMOST attainer of its
+    lower set's max (the last new-max event at or before it, a running
+    max of indices; `cummax`'s own indices do not promise the first of
+    equal values), so they are exact, and equal to the reference's.
+    Returns (loss, coeffs), with the subgradient X^T (coeffs * inv_n)."""
+    m = p.shape[0]
+    dev = p.device
+    pf, yf = p.to(f32), y.to(f32)
+    if m == 0:
+        return pf.sum() * inv_n, torch.zeros((0,), dtype=f32, device=dev)
+    gi = (torch.zeros((m,), dtype=torch.int32, device=dev) if g is None
+          else g.to(torch.int32))
+    order = _counts.lexsort(yf, gi)
+    gs, ys, ps = gi[order], yf[order], pf[order]
+    idx = torch.arange(m, device=dev)
+    one = torch.ones((1,), dtype=torch.bool, device=dev)
+    g_change = torch.cat([one, gs[1:] != gs[:-1]])
+    key_change = g_change | torch.cat([one, ys[1:] != ys[:-1]])
+    del gs, ys
+    seg_start = torch.cummax(torch.where(g_change, idx, -1), 0).values
+    fr = torch.cummax(torch.where(key_change, idx, -1), 0).values
+    del key_change
+    # the running max inside each segment, by the stable rank of p
+    rank_order = torch.sort(ps, stable=True).indices
+    key = torch.empty_like(rank_order)
+    key[rank_order] = idx
+    key += seg_start * m
+    running = ps[rank_order[torch.cummax(key, 0).values - seg_start * m]]
+    del rank_order, key
+    prev_run = torch.cat([ps[:1], running[:-1]])
+    new_max = g_change | (ps > prev_run)
+    del prev_run, g_change
+    attain = torch.cummax(torch.where(new_max, idx, -1), 0).values
+    del new_max
+    # the strictly lower prefix of example t is [seg_start, fr)
+    anchored = fr > seg_start
+    safe = (fr - 1).clamp_(min=0)
+    del fr, seg_start
+    margin = 1.0 + running[safe] - ps
+    active = anchored & (margin > 0)
+    loss = torch.where(active, margin, 0.0).sum() * inv_n
+    act = active.to(f32)
+    coeffs = (-act).index_add_(0, torch.where(active, attain[safe], 0), act)
+    out = torch.empty((m,), dtype=f32, device=dev)
+    out[order] = coeffs
+    return loss, out
+
+
+def _loss_counter(y, g, engine: str, block: int, loss: str, v=None):
+    """The counting pass of `loss` for fixed y (and g), made once per
+    oracle: `p -> (c, d)` for the hinge, `p -> (c~, d)` for 'poshinge'
+    (`counts.make_counter(v=)`), and `(p, inv_n) -> (loss, coeffs)` for
+    'toppush', for which `engine` is inert."""
+    if loss == 'toppush':
+        return lambda p, inv_n: _toppush_loss_coeffs(p, y, g, inv_n)
+    return _counts.make_counter(y, g, engine=engine, block=block, v=v)
+
+
+def _loss_and_coeffs(p, count, inv_n, v=None, loss: str = 'hinge'):
+    """Scores -> (R_emp, subgradient coefficients), the counting core of
+    every oracle; `count` is the loss's `_loss_counter`.
+
+      'hinge'     c - d, and the Lemma 1 sum (c - d) p + c over N
+      'poshinge'  c~ - v d, and sum (c~ - v d) p + c~ over W: Lemma 1 with
+                  the c side weighted by the higher side's decay and the d
+                  side by the example's own weight v
+      'toppush'   the one-pass running max (`_toppush_loss_coeffs`)"""
+    if loss == 'toppush':
+        return count(p, inv_n)
     c, d = count(p)
+    if loss == 'poshinge':
+        cd = c - v * d.to(f32)
+        return (cd * p + c).sum() * inv_n, cd
     cd = (c - d).to(f32)
     return (cd * p + c.to(f32)).sum() * inv_n, cd
 
 
-def _fused_step_impl(w, feats, count, inv_n):
+def _fused_step_impl(w, feats, count, inv_n, v=None, loss: str = 'hinge'):
     """The fused step: matvec -> counts -> loss -> subgradient."""
     p = feats.matvec(w)
-    loss_val, cd = _loss_and_coeffs(p, count, inv_n)
+    loss_val, cd = _loss_and_coeffs(p, count, inv_n, v, loss)
     del p
     return loss_val, feats.rmatvec(cd * inv_n)
 
@@ -354,7 +545,8 @@ def _fused_step_impl(w, feats, count, inv_n):
 class _FusedOracle(RankOracle):
     """Shared machinery of the fused oracles. Subclasses pick the counting
     engine ('tree' | 'blocked' | 'pallas' | 'auto') through `_engine`; an
-    explicit `engine=` overrides it."""
+    explicit `engine=` overrides it. `memory_budget` (GiB) sizes a CSR
+    input's accumulator replicas (`csr_replicas`)."""
 
     device_resident = True
     supports_device_solver = True
@@ -364,7 +556,7 @@ class _FusedOracle(RankOracle):
 
     def __init__(self, X, y, groups=None, csr_rmatvec: str = 'auto',
                  engine: str | None = None, engine_block: int = 2048,
-                 loss: str = 'hinge', device=None):
+                 loss: str = 'hinge', device=None, memory_budget=None):
         _validate_loss(loss)
         self.loss = loss
         self.device = resolve_device(device)
@@ -372,8 +564,11 @@ class _FusedOracle(RankOracle):
             _counts._validate_engine(engine)
             self._engine = engine
             self.name = f'{self.name}[{engine}]'
+        if loss != 'hinge':
+            self.name = f'{self.name}/{loss}'
         y = _as_numpy(y, np.float32)
-        self._feats = _features(X, self.device, csr_rmatvec=csr_rmatvec)
+        self._feats = _features(X, self.device, csr_rmatvec=csr_rmatvec,
+                                memory_budget=memory_budget)
         self.m, self.n = self._feats.m, self._feats.n
         if y.shape[0] != self.m:
             raise ValueError(f'X has {self.m} rows but y has {y.shape[0]}')
@@ -386,7 +581,13 @@ class _FusedOracle(RankOracle):
         self._y = torch.as_tensor(y, device=self.device)
         self._g = (None if groups is None
                    else torch.as_tensor(groups, device=self.device))
-        self.norm = float(self.n_pairs)
+        # N+ and W vanish exactly when N does, so the check above gives
+        # every loss a positive normalizer.
+        norm, pw = ((self.n_pairs, None) if loss == 'hinge'
+                    else _loss_norm_weights(y, groups, loss))
+        self.norm = float(norm)
+        self._pw = (None if pw is None
+                    else torch.as_tensor(pw, dtype=f32, device=self.device))
         self._inv_n = 1.0 / self.norm
         self._inv_n_dev = torch.tensor(self._inv_n, dtype=f32,
                                        device=self.device)
@@ -400,12 +601,11 @@ class _FusedOracle(RankOracle):
         self.prefer_device_solver = bool(self._feats.device_rmatvec)
 
     def _counter(self):
-        """The counter, made once per oracle: y is fixed, so its rank
-        compression and level guard are not redone per step."""
+        """The loss's counter, made once per oracle: y is fixed, so its
+        rank compression and level guard are not redone per step."""
         if self._count is None:
-            self._count = _counts.make_counter(self._y, self._g,
-                                               engine=self._engine,
-                                               block=self._block)
+            self._count = _loss_counter(self._y, self._g, self._engine,
+                                        self._block, self.loss, self._pw)
         return self._count
 
     def loss_and_subgrad(self, w):
@@ -418,7 +618,8 @@ class _FusedOracle(RankOracle):
             if feats.device_rmatvec:
                 return self.step_fn()(w)
             loss, cd = _loss_and_coeffs(feats.matvec(w), self._counter(),
-                                        self._inv_n_dev)
+                                        self._inv_n_dev, self._pw,
+                                        self.loss)
         return loss, feats.rmatvec_host(
             cd.cpu().numpy().astype(np.float64) * self._inv_n)
 
@@ -427,9 +628,10 @@ class _FusedOracle(RankOracle):
         finishes the transpose-matvec on the device: the device driver has
         no host to hand c - d to."""
         feats, count, inv_n = self._feats, self._counter(), self._inv_n_dev
+        v, loss = self._pw, self.loss
 
         def fn(w):
-            return _fused_step_impl(w, feats, count, inv_n)
+            return _fused_step_impl(w, feats, count, inv_n, v, loss)
 
         return fn
 
@@ -441,6 +643,24 @@ class TreeOracle(_FusedOracle):
     _engine = 'tree'
 
 
+class TopPushOracle(_FusedOracle):
+    """The top-rank oracle by name: `TreeOracle(..., loss='toppush')`.
+    Its one sorted pass counts nothing, so `engine=` is inert and kept
+    for the interface's sake."""
+
+    name = 'toppush'
+    _engine = 'tree'
+
+    def __init__(self, X, y, groups=None, csr_rmatvec: str = 'auto',
+                 engine: str | None = None, engine_block: int = 2048,
+                 device=None, memory_budget=None):
+        super().__init__(X, y, groups=groups, csr_rmatvec=csr_rmatvec,
+                         engine=engine, engine_block=engine_block,
+                         loss='toppush', device=device,
+                         memory_budget=memory_budget)
+        self.name = self.name.replace('/toppush', '', 1)
+
+
 class PairwiseOracle(_FusedOracle):
     """O(m^2) counting: the blocked pass (PairRSVM baseline) or, with
     dispatch='auto', `kernels.pairwise_rank.counts_auto`."""
@@ -448,7 +668,7 @@ class PairwiseOracle(_FusedOracle):
     def __init__(self, X, y, groups=None, block: int = 2048,
                  dispatch: str = 'blocked', csr_rmatvec: str = 'auto',
                  engine: str | None = None, loss: str = 'hinge',
-                 device=None):
+                 device=None, memory_budget=None):
         if dispatch not in ('blocked', 'auto'):
             raise ValueError(f'unknown dispatch {dispatch!r}')
         block = _counts._validate_block_rows(block, 'PairwiseOracle block')
@@ -456,7 +676,7 @@ class PairwiseOracle(_FusedOracle):
         self.name = 'pairs' if dispatch == 'blocked' else 'auto'
         super().__init__(X, y, groups=groups, csr_rmatvec=csr_rmatvec,
                          engine=engine, engine_block=block, loss=loss,
-                         device=device)
+                         device=device, memory_budget=memory_budget)
         if engine is None:
             self._block = min(block, self.m) if dispatch == 'blocked' else 0
 
@@ -469,7 +689,7 @@ class GroupedOracle(_FusedOracle):
 
     def __init__(self, X, y, groups, inner: str = 'tree', block: int = 2048,
                  csr_rmatvec: str = 'auto', engine: str | None = None,
-                 loss: str = 'hinge', device=None):
+                 loss: str = 'hinge', device=None, memory_budget=None):
         if groups is None:
             raise ValueError('GroupedOracle requires group ids')
         if inner not in ('tree', 'pairs', 'auto'):
@@ -480,7 +700,7 @@ class GroupedOracle(_FusedOracle):
         self.name = f'grouped/{inner}'
         super().__init__(X, y, groups=groups, csr_rmatvec=csr_rmatvec,
                          engine=engine, engine_block=block, loss=loss,
-                         device=device)
+                         device=device, memory_budget=memory_budget)
         if engine is None:
             self._block = min(block, self.m) if inner == 'pairs' else 0
 
@@ -507,11 +727,23 @@ def _fetch_padded(src, B: int, m: int, n: int, i) -> np.ndarray:
     return blk
 
 
-def _auto_stream_block(m: int, row_bytes: int, memory_budget) -> int:
+# Peak bytes a streamed call's counting pass allocates per example beyond
+# the O(m) vectors, for the losses whose pass is not the hinge's tree:
+# the weighted tree (its level adds the weights' prefix sums and the
+# sort's indices) and TopPush's sorts and running maxima. Upper bounds of
+# the peaks measured on the card at m = 2^20
+# (tests/test_torch_cuda.py::test_loss_counting_peaks_hold_their_charge).
+LOSS_COUNT_BYTES = {'poshinge': 112, 'toppush': 112}
+
+
+def _auto_stream_block(m: int, row_bytes: int, memory_budget,
+                       count_bytes=None) -> int:
     """Rows per block from a GiB budget: reserve the O(m) per-example
     vectors (~6 f32 scalars each: p, y, c, d, c-d, v), spend at most half
     the remainder on the resident blocks; the other half stays headroom
-    for the counting pass's temporaries. `row_bytes` is the source's
+    for the counting pass's temporaries. A counting pass that needs more
+    (`count_bytes`, a loss's `LOSS_COUNT_BYTES` times m) takes that much
+    instead, and the blocks get the rest. `row_bytes` is the source's
     layout-native per-row cost (`RowBlockSource.row_bytes`), times the
     blocks in flight."""
     if memory_budget is None:
@@ -527,7 +759,12 @@ def _auto_stream_block(m: int, row_bytes: int, memory_budget) -> int:
             'want: raise the budget or pass stream_block explicitly.',
             RuntimeWarning, stacklevel=3)
         return 1
-    b = int((budget - overhead) * 0.5 // max(row_bytes, 1))
+    if count_bytes is None:
+        b = int((budget - overhead) * 0.5 // max(row_bytes, 1))
+    else:
+        free = budget - overhead
+        b = int((free - max(float(count_bytes), free * 0.5))
+                // max(row_bytes, 1))
     return max(1, min(b, max(m, 1)))
 
 
@@ -543,6 +780,9 @@ class StreamingOracle(RankOracle):
               vector (`_loss_and_coeffs` with the oracle's engine; the
               default 'auto' tiers as the fused oracles do)
       pass 2  a = sum over blocks of X_block^T v_block, v = (c - d) / N
+
+with the loss's counting pass and normalizer (`_loss_and_coeffs`) in
+place of c - d and N for 'poshinge' and 'toppush'.
 
     Features can live in RAM, in CSR or in an `np.memmap` on disk
     (`data.rowblocks`). `prefetch=` (blocks of read-ahead; None/'auto'
@@ -561,7 +801,9 @@ class StreamingOracle(RankOracle):
         next is fetched and before the counting pass.
 
     `memory_budget` (GiB) sizes the blocks (`_auto_stream_block`), with
-    the read-ahead's in-flight blocks counted against it.
+    the read-ahead's in-flight blocks counted against it, and the
+    counting pass of 'poshinge' or 'toppush' charged at its own peak
+    (`LOSS_COUNT_BYTES`).
     """
 
     name = 'stream'
@@ -595,7 +837,8 @@ class StreamingOracle(RankOracle):
             # pending + 1 being consumed.
             block_rows = _auto_stream_block(
                 self.m, self._src.row_bytes() * (1 + self._prefetch),
-                memory_budget)
+                memory_budget,
+                None if loss == 'hinge' else LOSS_COUNT_BYTES[loss] * self.m)
         block_rows = _validate_block_rows(block_rows,
                                           'StreamingOracle block_rows')
         self._B = min(block_rows, self.m)
@@ -603,12 +846,18 @@ class StreamingOracle(RankOracle):
         self._y = torch.as_tensor(y, device=self.device)
         self._g = (None if groups is None
                    else torch.as_tensor(groups, device=self.device))
-        self.norm = float(self.n_pairs)
+        norm, pw = ((self.n_pairs, None) if loss == 'hinge'
+                    else _loss_norm_weights(y, groups, loss))
+        self.norm = float(norm)
+        self._pw = (None if pw is None
+                    else torch.as_tensor(pw, dtype=f32, device=self.device))
         self._inv_n = 1.0 / self.norm
         self._inv_n_dev = torch.tensor(self._inv_n, dtype=f32,
                                        device=self.device)
         self._count = None
         self.name = f'stream/{self._src.kind}'
+        if loss != 'hinge':
+            self.name = f'{self.name}/{loss}'
         # The device step densifies one (block, n) slab per fetch; for
         # CSR sources the host passes stay sparse, so solver='auto' keeps
         # them on the host driver.
@@ -634,9 +883,8 @@ class StreamingOracle(RankOracle):
 
     def _counter(self):
         if self._count is None:
-            self._count = _counts.make_counter(self._y, self._g,
-                                               engine=self._engine,
-                                               block=self._cblock)
+            self._count = _loss_counter(self._y, self._g, self._engine,
+                                        self._cblock, self.loss, self._pw)
         return self._count
 
     def loss_and_subgrad(self, w):
@@ -650,7 +898,7 @@ class StreamingOracle(RankOracle):
         with full_f32():
             loss, cd = _loss_and_coeffs(
                 torch.as_tensor(p, device=self.device), self._counter(),
-                self._inv_n_dev)
+                self._inv_n_dev, self._pw, self.loss)
         v = cd.cpu().numpy().astype(np.float64) * self._inv_n
         del cd
         a = np.zeros(self.n, np.float64)
@@ -666,6 +914,7 @@ class StreamingOracle(RankOracle):
         one at a time. The closure holds locals only, never the oracle."""
         B, n, m, nblk = self._B, self.n, self.m, self._nblk
         dev, count, inv_n = self.device, self._counter(), self._inv_n_dev
+        pw, loss_name = self._pw, self.loss
         fetch = functools.partial(_fetch_padded, self._src, B, m, n)
         if self._prefetch and nblk > 1:
             # get(i) is exact for any access order (a miss fetches
@@ -680,7 +929,7 @@ class StreamingOracle(RankOracle):
                 blk = torch.from_numpy(fetch(i)).to(dev)
                 p[i * B:(i + 1) * B] = blk @ w
                 del blk
-            loss, cd = _loss_and_coeffs(p[:m], count, inv_n)
+            loss, cd = _loss_and_coeffs(p[:m], count, inv_n, pw, loss_name)
             v = torch.zeros(nblk * B, dtype=f32, device=dev)
             v[:m] = cd * inv_n
             del p, cd
@@ -723,13 +972,18 @@ def make_oracle(X, y, groups=None, method: str = 'tree', *,
     kernel. `csr_rmatvec` ('auto' | 'host' | 'device') places a fused
     CSR oracle's transpose-matvec. `device` defaults to 'cuda'.
 
+    `loss` is 'hinge', 'toppush' or 'poshinge' (DESIGN.md §12) for every
+    method; `TopPushOracle` is the top-rank oracle by name.
+
     method='auto' streams when the projected fused residency
     (`data.rowblocks.projected_resident_gib`) exceeds `memory_budget`
-    GiB, and always for an `np.memmap` or a `RowBlockSource`; otherwise
-    it keeps the fused counts_auto oracle. `stream_block` (rows) defaults
-    to the budget-derived size (`_auto_stream_block`); `prefetch`
-    (None/'auto' | int >= 0) is the streaming oracle's read-ahead depth
-    and is ignored by the fused oracles."""
+    GiB, when a CSR input's transpose-matvec would not fit one
+    accumulator replica beside it (`csr_replicas`), and always for an
+    `np.memmap` or a `RowBlockSource`; otherwise it keeps the fused
+    counts_auto oracle, whose replicas the budget sizes. `stream_block`
+    (rows) defaults to the budget-derived size (`_auto_stream_block`);
+    `prefetch` (None/'auto' | int >= 0) is the streaming oracle's
+    read-ahead depth and is ignored by the fused oracles."""
     if method not in METHODS:
         raise ValueError(f'unknown oracle method {method!r}; '
                          f'expected one of {METHODS}')
@@ -742,7 +996,9 @@ def make_oracle(X, y, groups=None, method: str = 'tree', *,
     _validate_prefetch(prefetch)
     stream_only = isinstance(X, (_rowblocks.RowBlockSource, np.memmap))
     if method == 'auto' and not stream_only and memory_budget is not None:
-        if _rowblocks.projected_resident_gib(X) > float(memory_budget):
+        if _rowblocks.projected_resident_gib(X) > float(memory_budget) or (
+                _rowblocks.is_sparse_input(X) and csr_replicas(
+                    *_csr_layout(X), memory_budget=memory_budget) == 0):
             method = 'stream'
     if method == 'stream' or (method == 'auto' and stream_only):
         return StreamingOracle(X, y, groups=groups, block_rows=stream_block,
@@ -755,36 +1011,40 @@ def make_oracle(X, y, groups=None, method: str = 'tree', *,
             f"method={method!r} needs materialized features, but X is a "
             f'{type(X).__name__} row-block source; train it with '
             "method='stream' (or 'auto', which streams such sources)")
+    kw = dict(csr_rmatvec=csr_rmatvec, engine=engine, loss=loss,
+              device=device, memory_budget=memory_budget)
     if groups is not None:
         return GroupedOracle(X, y, groups, inner=method, block=pair_block,
-                             csr_rmatvec=csr_rmatvec, engine=engine,
-                             loss=loss, device=device)
+                             **kw)
     if method == 'tree':
-        return TreeOracle(X, y, csr_rmatvec=csr_rmatvec, engine=engine,
-                          engine_block=pair_block, loss=loss, device=device)
+        return TreeOracle(X, y, engine_block=pair_block, **kw)
     return PairwiseOracle(
         X, y, block=pair_block,
-        dispatch='auto' if method == 'auto' else 'blocked',
-        csr_rmatvec=csr_rmatvec, engine=engine, loss=loss, device=device)
+        dispatch='auto' if method == 'auto' else 'blocked', **kw)
 
 
 def empirical_risk(scores, utilities, groups=None, loss: str = 'hinge',
                    device=None) -> float:
-    """R_emp for precomputed scores: the mean pairwise hinge over the N
-    preference pairs, through the tree. Returns a host float; 0.0 when
-    the data induces no preference pairs."""
+    """R_emp for precomputed scores, the risk the oracles minimize under
+    `loss`: the mean pairwise hinge over the N pairs ('hinge'), the mean
+    anchored top-rank margin over N+ ('toppush'), or the
+    position-weighted pair hinge over the weight W ('poshinge'), through
+    the tree. Returns a host float; 0.0 when the data induces no
+    preference pairs."""
     _validate_loss(loss)
     dev = resolve_device(device)
     y = _as_numpy(utilities, np.float32)
     if groups is not None:
         groups = _validate_groups(_as_numpy(groups, None), y.shape[0])
-    norm = _exact_pairs(y, groups)
+    norm, pw = _loss_norm_weights(y, groups, loss)
     if norm == 0:
         return 0.0
     p = (scores.detach().to(device=dev, dtype=f32) if torch.is_tensor(scores)
          else torch.as_tensor(np.asarray(scores, np.float32), device=dev))
     g = None if groups is None else torch.as_tensor(groups, device=dev)
-    count = _counts.make_counter(torch.as_tensor(y, device=dev), g)
-    val, _ = _loss_and_coeffs(p, count, torch.tensor(1.0 / float(norm),
-                                                     dtype=f32, device=dev))
+    v = None if pw is None else torch.as_tensor(pw, dtype=f32, device=dev)
+    count = _loss_counter(torch.as_tensor(y, device=dev), g, 'tree', 0,
+                          loss, v)
+    val, _ = _loss_and_coeffs(p, count, torch.tensor(
+        1.0 / float(norm), dtype=f32, device=dev), v, loss)
     return float(val)

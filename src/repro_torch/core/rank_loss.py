@@ -1,20 +1,20 @@
 """Pairwise ranking error and the differentiable pairwise hinge at
 linearithmic cost.
 
-The counterpart of the part of `repro.core.rank_loss` the port needs:
-`ranking_error` (the paper's eq. 1), `_compact_ids`, and
-`pairwise_hinge_loss`, eq. (4) by Lemma 1 with Lemma 2's subgradient as
-its gradient (a `torch.autograd.Function`, the counterpart of the
-reference's `jax.custom_vjp`):
+The counterpart of `repro.core.rank_loss`: `ranking_error` (the paper's
+eq. 1), the metrics of the other two losses (`top1_error` for 'toppush',
+`position_weighted_error` and its weights `poshinge_weights` for
+'poshinge'), `_compact_ids`, and `pairwise_hinge_loss`, eq. (4) by
+Lemma 1 with Lemma 2's subgradient as its gradient (a
+`torch.autograd.Function`, the counterpart of the reference's
+`jax.custom_vjp`):
 
     forward :  loss = (1/N) sum_i ((c_i - d_i) p_i + c_i)
     backward:  d loss / d p_i = (c_i - d_i) / N
 
 so a neural scorer (the RWKV-6 score head of `objective='rank_hinge'`)
 trains against the exact RankSVM objective over the whole batch in
-O(m log^2 m). `loss_and_subgradient` returns both without autograd. The
-other losses and metrics wait for the loss axis (ROADMAP.md Queue 1 item
-6).
+O(m log^2 m). `loss_and_subgradient` returns both without autograd.
 """
 
 from __future__ import annotations
@@ -63,6 +63,119 @@ def ranking_error(scores: torch.Tensor, utilities: torch.Tensor,
                - swaps_lt).to(torch.float32)
     total = swaps.sum() + 0.5 * ties_gt.sum()
     return total / n
+
+
+def poshinge_weights(utilities, group_ids=None):
+    """(v, W): the position-decay pair weights of the 'poshinge' loss, as
+    float64 numpy and a float.
+
+    v_i = 1 / log2(1 + rank_i), rank_i = |{k in group : y_k > y_i}| + 1,
+    the decay of example i's UTILITY rank (static in w, which keeps the
+    loss convex); W = the sum over preference pairs (i, j), y_i < y_j, of
+    the higher side's weight v_j, the normalizer that replaces N. Exact on
+    the host, O(m log m); `_utility_rank_weights` is its twin on the
+    device."""
+    from .oracle import _as_numpy, _poshinge_weights_norm
+    return _poshinge_weights_norm(
+        _as_numpy(utilities, None),
+        None if group_ids is None else _as_numpy(group_ids, None))
+
+
+def _group_vector(group_ids, m, device):
+    if group_ids is None:
+        return torch.zeros((m,), dtype=torch.int64, device=device)
+    return _compact_ids(group_ids).to(torch.int64)
+
+
+def top1_error(scores: torch.Tensor, utilities: torch.Tensor,
+               group_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Top-1 error: the fraction of groups whose best-scoring example is
+    not a maximum-utility one, the metric 'toppush' trains a surrogate
+    of. A group with tied top scores counts the fraction of its top
+    scorers below the group's best utility. Groups weigh alike;
+    `group_ids=None` is one group."""
+    p = scores.to(torch.float32)
+    y = utilities.to(torch.float32)
+    m = p.shape[0]
+    g = _group_vector(group_ids, m, p.device)
+    ninf = torch.full((m,), float('-inf'), device=p.device)
+    pmax = ninf.scatter_reduce(0, g, p, 'amax')
+    ymax = ninf.scatter_reduce(0, g, y, 'amax')
+    top = p == pmax[g]
+    bad = top & (y < ymax[g])
+    zeros = torch.zeros((m,), dtype=torch.float32, device=p.device)
+    n_top = zeros.index_add(0, g, top.to(torch.float32))
+    n_bad = zeros.index_add(0, g, bad.to(torch.float32))
+    size = zeros.index_add(0, g, torch.ones_like(p))
+    err = torch.where(size > 0, n_bad / n_top.clamp(min=1.0), 0.0)
+    return err.sum() / (size > 0).sum().to(torch.float32).clamp(min=1.0)
+
+
+def _run_bounds(keys):
+    """For sorted rows of `keys` (tensors of one length, compared
+    lexicographically): per position, the index of the first and one past
+    the last element of its run of equal keys."""
+    m = keys[0].shape[0]
+    dev = keys[0].device
+    idx = torch.arange(m, device=dev)
+    one = torch.ones((1,), dtype=torch.bool, device=dev)
+    change = torch.zeros((m - 1,), dtype=torch.bool, device=dev)
+    for k in keys:
+        change |= k[1:] != k[:-1]
+    first = torch.cat([one, change])
+    last = torch.cat([change, one])
+    start = torch.cummax(torch.where(first, idx, -1), 0).values
+    end = 1 + torch.cummin(torch.where(last, idx, m).flip(0), 0).values.flip(0)
+    return start, end
+
+
+def _utility_rank_weights(y, g):
+    """(v, lower) on the device: each example's 1/log2(1 + utility rank)
+    weight and its count of strictly lower utilities in its group, from
+    one stable (g, y) sort and running maxima and minima over the
+    change points (`torch.cummax`, and `cummin` on the flipped order).
+    The twin of `poshinge_weights`."""
+    m = y.shape[0]
+    if m == 0:
+        return torch.zeros_like(y), torch.zeros_like(y)
+    order = _counts.lexsort(y, g)
+    gs, ys = g[order], y[order]
+    seg_start, seg_end = _run_bounds([gs])
+    run_start, run_end = _run_bounds([gs, ys])
+    rank = (seg_end - run_end + 1).to(torch.float32)
+    vs = 1.0 / torch.log2(1.0 + rank)
+    lower = (run_start - seg_start).to(torch.float32)
+    v = torch.empty_like(vs)
+    v[order] = vs
+    low = torch.empty_like(lower)
+    low[order] = lower
+    return v, low
+
+
+def position_weighted_error(scores: torch.Tensor, utilities: torch.Tensor,
+                            group_ids: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Position-weighted pairwise ranking error, the metric of the
+    'poshinge' loss: each swapped preference pair (y_i < y_j, p_i > p_j)
+    costs the higher side's weight v_j (`poshinge_weights`), a score tie
+    half of it, over the total pair weight W; 0 when there is no pair.
+    Equal to `ranking_error` when all weights are equal."""
+    p = scores.to(torch.float32)
+    y = utilities.to(torch.float32)
+    g = _group_vector(group_ids, p.shape[0], p.device)
+    v, lower = _utility_rank_weights(y, g)
+    W = (v * lower).sum()
+    if group_ids is not None:
+        p, y = _counts._group_offsets(p, y, g)
+    order = torch.argsort(p, stable=True)
+    ps, ys, vs = p[order], y[order], v[order]
+    lt = torch.searchsorted(ps, ps, right=False)      # p_k <  p_i
+    le = torch.searchsorted(ps, ps, right=True)       # p_k <= p_i
+    # the weight of {k : p_k < p_i, y_k > y_i}, and of the p-ties
+    # [lt, le) at half cost (k = i adds nothing: y_i > y_i is false)
+    wsw, wle = _counts._prefix_weighted_greater(ys, vs, [lt, le], ys)
+    total = wsw.sum() + 0.5 * (wle - wsw).sum()
+    return torch.where(W > 0, total / torch.where(W > 0, W, 1.0), 0.0)
 
 
 def _loss_from_counts(p, c, d, n):

@@ -1,8 +1,9 @@
 """RankSVM estimator: TreeRSVM (the paper's method) and PairRSVM (baseline).
 
 The counterpart of `repro.core.ranksvm.RankSVM` for the slice that is
-ported: dense and CSR features, streamed features, the paper's hinge,
-methods 'tree', 'pairs', 'auto' and 'stream', both BMRM drivers.
+ported: dense and CSR features, streamed features, the losses 'hinge'
+(the paper's), 'toppush' and 'poshinge' (DESIGN.md §12), methods
+'tree', 'pairs', 'auto' and 'stream', both BMRM drivers.
 `method=` picks the oracle (`core.oracle.make_oracle`), `engine=` its
 counting engine and `solver=` the BMRM driver (`core.bmrm`); the
 estimator itself touches no counting internals. The model trains on
@@ -27,7 +28,8 @@ from . import rank_loss as _rank_loss
 from .bmrm import SOLVERS, bmrm
 from ..data.rowblocks import _validate_prefetch
 from .counts import _validate_block_rows, _validate_engine
-from .oracle import METHODS, _validate_loss, empirical_risk, make_oracle
+from .oracle import (METHODS, _as_numpy, _validate_loss, empirical_risk,
+                     make_oracle)
 
 
 @dataclasses.dataclass
@@ -53,7 +55,10 @@ class RankSVM:
         NotImplementedError). 'auto' streams when `memory_budget` is set
         and the projected fused residency exceeds it, and always for an
         np.memmap or a row-block source.
-      loss: 'hinge' (the other losses raise NotImplementedError).
+      loss: 'hinge' (the paper's pairwise hinge), 'toppush' (each
+        anchored example against the best-scoring lower one) or
+        'poshinge' (pairs weighted by the higher side's utility rank);
+        `objective` evaluates the same loss.
       engine: counting-engine override, None | 'tree' | 'blocked' |
         'pallas' (the rank-counts kernel) | 'auto' (the pairwise kernel up
         to KERNEL_MAX_M examples, the rank-counts kernel above).
@@ -177,13 +182,13 @@ class RankSVM:
               if torch.is_tensor(y)
               else torch.as_tensor(np.asarray(y, np.float32), device=dev))
         g = None if groups is None else torch.as_tensor(
-            np.asarray(groups, np.int32), device=dev)
+            _as_numpy(groups, np.int32), device=dev)
         return float(_rank_loss.ranking_error(p, yt, g))
 
     def objective(self, X, y, groups=None) -> float:
         """J(w) = R_emp(w) + lam ||w||^2 (`core.oracle.empirical_risk`)."""
         p = self.decision_function(X)
-        g = None if groups is None else np.asarray(groups, np.int32)
+        g = None if groups is None else _as_numpy(groups, np.int32)
         return (empirical_risk(p, y, g, loss=self.loss, device=self.device)
                 + self.lam * float(self.w_ @ self.w_))
 

@@ -190,12 +190,25 @@ def test_loss_from_counts_matches_reference(m):
 
 
 def test_validate_engine_and_unported_weighting():
+    """Engine and block are checked up front; weighted counting (v=),
+    ported with the loss axis, returns the weighted tree's (c~, d) on
+    every engine but 'blocked' (the counting kernels have no weighted
+    variant, as in the reference): d bit-equal to the unweighted counts,
+    c~ within 1e-6 of sum(v) of the reference's."""
     with pytest.raises(ValueError, match='unknown counting engine'):
         TC.counts_dispatch(torch.zeros(2), torch.zeros(2), None,
                            engine='tre')
     with pytest.raises(ValueError, match='whole number'):
         TC.counts_dispatch(torch.zeros(2), torch.zeros(2), None,
                            engine='blocked', block=2.5)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
-        TC.counts_dispatch(torch.zeros(2), torch.zeros(2), None,
-                           v=torch.ones(2))
+    p, y = _half_grid()
+    v = np.random.default_rng(3).random(p.shape[0]).astype(np.float32)
+    cj, dj = JC.counts_weighted_fused(jnp.asarray(p), jnp.asarray(y),
+                                      jnp.asarray(v))
+    tree = TC.counts_weighted_fused(t(p), t(y), t(v))
+    for engine in ('tree', 'pallas', 'auto'):
+        cw, d = TC.counts_dispatch(t(p), t(y), None, engine=engine, v=t(v))
+        assert cw.dtype == torch.float32 and torch.equal(cw, tree[0])
+        assert np.array_equal(n(d), n(TC.counts_fused(t(p), t(y))[1]))
+        assert np.array_equal(n(d), np.asarray(dj))
+        assert np.abs(n(cw) - np.asarray(cj)).max() <= 1e-6 * v.sum()

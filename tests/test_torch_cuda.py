@@ -3,8 +3,10 @@
 the backward kernel's ds0 bit for bit, their other outputs within the
 tolerances below), a fit on the card against the same fit on the CPU,
 the sparse and streamed oracles on the card (the tree's memory, the
-device transpose-matvec, the streaming budget and its determinism), and
-the reduced RWKV-6 prefill and train step on the card against the CPU.
+device transpose-matvec, the streaming budget and its determinism), the
+loss axis (the weighted tree's memory, TopPush's coefficients, the
+r-level counts, the accumulator's budget), and the reduced RWKV-6
+prefill and train step on the card against the CPU.
 
 Every test here needs a CUDA device (Hopper, for the sm_90a kernels) and
 is marked `cuda`; without one it skips. This module imports neither JAX
@@ -358,6 +360,172 @@ def test_stream_is_deterministic_at_both_depths(layout, cuda_device):
         assert torch.equal(l0, host[0][0]) and np.array_equal(a0, host[0][1])
     for (l0, a0) in dev[1:]:
         assert torch.equal(l0, dev[0][0]) and torch.equal(a0, dev[0][1])
+
+
+# ------------------------------------------------------------ loss axis
+
+
+def _graded_queries(m, seed):
+    """Normal scores, five grades and query ids of 128 consecutive rows,
+    made on the host."""
+    rng = np.random.default_rng(seed)
+    p = rng.normal(size=m).astype(np.float32) * 2
+    y = rng.integers(0, 5, size=m).astype(np.float32)
+    g = (np.arange(m) // 128).astype(np.int32)
+    return p, y, g
+
+
+def test_weighted_tree_holds_one_level_at_a_time(cuda_device):
+    """At m = 2^20 the weighted tree's counting pass stays under the
+    unweighted tree's bar (92,274,688 bytes) plus 16 m bytes (the weights
+    in score order, and a level's prefix sums and sort indices), and
+    under the charge the streaming rule makes for it; d equals the CPU's
+    and the unweighted tree's bit for bit, c~ the CPU's within 1e-6 of
+    sum(v)."""
+    from repro_torch.core.oracle import LOSS_COUNT_BYTES
+    rng = np.random.default_rng(21)
+    m = 1 << 20
+    p = torch.as_tensor(rng.normal(size=m).astype(np.float32),
+                        device=cuda_device)
+    y = torch.as_tensor(rng.normal(size=m).astype(np.float32),
+                        device=cuda_device)
+    v = torch.as_tensor((1.0 / np.log2(2.0 + np.arange(m)))[
+        rng.permutation(m)].astype(np.float32), device=cuda_device)
+    (cw, d), peak = _peak_above_start(
+        lambda: TC.counts_weighted_fused(p, y, v))
+    assert peak <= (int(0.1953125 * 2**30) - 24 * m) // 2 + 16 * m, peak
+    assert peak <= LOSS_COUNT_BYTES['poshinge'] * m
+    cc, dc = TC.counts_weighted_fused(p.cpu(), y.cpu(), v.cpu())
+    assert torch.equal(d.cpu(), dc)
+    assert torch.equal(d, TC.counts_fused(p, y)[1])
+    assert float((cw.cpu() - cc).abs().max()) <= 1e-6 * float(v.sum())
+
+
+def test_loss_counting_peaks_hold_their_charge(cuda_device):
+    """Each loss's counting pass at m = 2^20 with 8192 queries of 128
+    rows allocates at most `LOSS_COUNT_BYTES[loss] * m` above its
+    inputs, the charge `StreamingOracle` makes for it."""
+    from repro_torch.core.oracle import (LOSS_COUNT_BYTES, _loss_counter,
+                                         _poshinge_weights_norm)
+    m = 1 << 20
+    p, y, g = _graded_queries(m, seed=22)
+    v = _poshinge_weights_norm(y, g)[0]
+    dev = cuda_device
+    pd, yd, gd = (torch.as_tensor(a, device=dev) for a in (p, y, g))
+    vd = torch.as_tensor(v, dtype=torch.float32, device=dev)
+    for loss in ('poshinge', 'toppush'):
+        count = _loss_counter(yd, gd, 'tree', 0, loss, vd)
+        args = (pd, 1.0) if loss == 'toppush' else (pd,)
+        _, peak = _peak_above_start(lambda: count(*args))
+        assert peak <= LOSS_COUNT_BYTES[loss] * m, (loss, peak)
+
+
+def test_toppush_coefficients_on_the_card_equal_the_cpu(cuda_device):
+    """TopPush's loss pass on the card against the CPU on the same scores,
+    ungrouped and with 8192 queries, heavy score ties included: the
+    coefficients bit for bit, the loss within 1e-6; two calls on the
+    card bit-identical."""
+    from repro_torch.core.oracle import _toppush_loss_coeffs
+    m = 1 << 20
+    p, y, g = _graded_queries(m, seed=23)
+    for scores in (p, np.round(p * 4) / 4):
+        for groups in (None, g):
+            args = [torch.as_tensor(a) for a in (scores, y)] + [
+                None if groups is None else torch.as_tensor(groups)]
+            lc, cc = _toppush_loss_coeffs(*args, 1e-6)
+            card = [None if a is None else a.to(cuda_device) for a in args]
+            l1, c1 = _toppush_loss_coeffs(*card, 1e-6)
+            l2, c2 = _toppush_loss_coeffs(*card, 1e-6)
+            assert torch.equal(c1.cpu(), cc)
+            assert torch.equal(l1, l2) and torch.equal(c1, c2)
+            assert abs(float(l1) - float(lc)) <= 1e-6 * abs(float(lc))
+
+
+def test_poshinge_oracle_on_the_card_matches_the_cpu(cuda_device):
+    """The grouped poshinge oracle through every engine on the card
+    against the CPU tree: 'pallas' and 'auto' count with the weighted
+    tree and launch no counting kernel."""
+    from repro_torch.core.oracle import make_oracle
+    from repro_torch.kernels.rank_counts import ops as RC
+    rng = np.random.default_rng(24)
+    m, nn = 20000, 16
+    X = rng.normal(size=(m, nn)).astype(np.float32)
+    y = rng.integers(0, 5, size=m).astype(np.float32)
+    g = (np.arange(m) // 100).astype(np.int32)
+    w = rng.normal(size=nn) * 0.3
+    lc, ac = make_oracle(X, y, groups=g, loss='poshinge',
+                         device='cpu').loss_and_subgrad(w)
+    for engine in ('tree', 'pallas', 'auto', 'blocked'):
+        before = (RC.RANK_COUNTS.launches, PR.PAIRWISE.launches)
+        o = make_oracle(X, y, groups=g, loss='poshinge', engine=engine,
+                        device=cuda_device)
+        l1, a1 = o.loss_and_subgrad(w)
+        assert (RC.RANK_COUNTS.launches, PR.PAIRWISE.launches) == before
+        assert abs(float(l1) - float(lc)) <= 1e-5 * abs(float(lc)), engine
+        np.testing.assert_allclose(a1.cpu().numpy(), ac.numpy(), rtol=1e-4,
+                                   atol=1e-5 * float(ac.abs().max()))
+
+
+@pytest.mark.parametrize('r', [2, 32, 512, 2048])
+def test_rlevel_counts_on_the_card_equal_the_tree(r, cuda_device):
+    from repro_torch.core.joachims import counts_rlevel
+    rng = np.random.default_rng(25 + r)
+    m = 65536
+    p = torch.as_tensor(rng.normal(size=m).astype(np.float32),
+                        device=cuda_device)
+    yl = torch.as_tensor(rng.integers(0, r, size=m).astype(np.int32),
+                         device=cuda_device)
+    c, d = counts_rlevel(p, yl, r)
+    cf, df = TC.counts_fused(p, yl.float())
+    assert torch.equal(c, cf) and torch.equal(d, df)
+
+
+def test_fused_csr_replicas_hold_the_budget(cuda_device):
+    """At m = 4096, n = 2^20 and 50 nonzeros a row, method='auto' under
+    a 0.25 GiB budget keeps the fused oracle (its projection is 0.0015
+    GiB), sizes its transpose-matvec's replicas to the budget, and
+    building it and a call allocate within the budget on the card (64
+    replicas alone would take 512 MiB)."""
+    from repro_torch.core.oracle import (RMATVEC_REPLICAS, PairwiseOracle,
+                                         make_oracle)
+    from repro_torch.data import random_tfidf
+    m, nn = 4096, 2**20
+    X = random_tfidf(m=m, n=nn, nnz_per_row=50, seed=26)
+    y = np.random.default_rng(26).normal(size=m).astype(np.float32)
+    w = np.random.default_rng(27).normal(size=nn) * 0.01
+    budget = 0.25
+
+    def build_and_call():
+        oracle = make_oracle(X, y, method='auto', memory_budget=budget,
+                             device=cuda_device)
+        assert isinstance(oracle, PairwiseOracle)
+        assert 1 <= oracle._feats._replicas < RMATVEC_REPLICAS
+        return oracle.loss_and_subgrad(w)
+
+    (loss, a), peak = _peak_above_start(build_and_call)
+    assert peak <= budget * 2**30, peak
+    assert torch.isfinite(loss) and bool(torch.isfinite(
+        torch.as_tensor(a)).all())
+
+
+@pytest.mark.parametrize('loss', ['poshinge', 'toppush'])
+def test_streamed_loss_holds_its_budget_on_the_card(loss, cuda_device):
+    """A streamed 'poshinge' or 'toppush' call stays inside the budget as
+    the hinge's does, and equals the resident oracle's loss."""
+    from repro_torch.core.oracle import StreamingOracle, make_oracle
+    from repro_torch.data import projected_resident_gib
+    data = _reuters(1 << 17, n=2048)
+    X, y = data.X, data.y
+    budget = projected_resident_gib(X) / 2
+    w = np.random.default_rng(28).normal(size=X.shape[1]) * 0.1
+    o = make_oracle(X, y, method='auto', memory_budget=budget, loss=loss,
+                    prefetch=1, device=cuda_device)
+    assert isinstance(o, StreamingOracle)
+    (ls, _), peak = _peak_above_start(lambda: o.loss_and_subgrad(w))
+    assert peak <= budget * 2**30, peak
+    lr, _ = make_oracle(X, y, loss=loss, device=cuda_device
+                        ).loss_and_subgrad(w)
+    assert abs(float(ls) - float(lr)) <= 1e-5 * abs(float(lr))
 
 
 def _wkv_case(nn, tt, kk, dtype, dev, seed=0):

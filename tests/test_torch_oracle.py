@@ -119,13 +119,15 @@ def test_empirical_risk_and_ranking_error_match_jax_package(case):
 
 
 def test_unported_arguments_name_their_roadmap_item():
-    """Unported losses and method='sharded' name their item; streamed and
-    sparse features (Queue 1 item 9) are ported and build their
-    oracles."""
+    """method='sharded' names its item; streamed and sparse features
+    (Queue 1 item 9) and the losses 'toppush' and 'poshinge' (item 7)
+    are ported and build their oracles."""
     X = np.eye(3)
     y = np.arange(3.0)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
-        TO.make_oracle(X, y, loss='toppush', device='cpu')
+    for loss in ('toppush', 'poshinge'):
+        o = TO.make_oracle(X, y, loss=loss, device='cpu')
+        assert isinstance(o, TO.TreeOracle) and o.loss == loss
+        assert o.name == f'tree/{loss}'
     with pytest.raises(NotImplementedError, match='Queue 1 item 12'):
         TO.make_oracle(X, y, method='sharded', device='cpu')
     assert isinstance(TO.make_oracle(X, y, method='stream', device='cpu'),

@@ -176,7 +176,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             'repro_torch.data.tokens, repro_torch.launch.train, '
             'repro_torch.core.rank_loss, repro_torch.core.oracle, '
             'repro_torch.data.sparse, repro_torch.data.rowblocks, '
-            'repro_torch.data.synthetic; '
+            'repro_torch.data.synthetic, repro_torch.core.joachims; '
             "assert 'jax' not in sys.modules, 'the port pulled in jax'; "
             "assert 'repro' not in sys.modules, "
             "'the port pulled in the JAX package'")

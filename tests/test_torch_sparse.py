@@ -345,3 +345,60 @@ def test_tree_builds_one_level_at_a_time(monkeypatch):
         assert len(alive) == (m - 1).bit_length()
         assert all(torch.equal(a.to(torch.int64), b.to(torch.int64))
                    for a, b in zip(got, want))
+
+
+# ------------------------------------------- the accumulator's budget
+
+
+def test_fused_csr_replicas_fit_the_budget(monkeypatch):
+    """A fused CSR oracle sizes its transpose-matvec's float64 replicas
+    (8 n bytes each) to what a memory budget leaves after its features,
+    the O(m) vectors, the per-column state and a chunk's temporaries: at
+    m = 4096, n = 2^20 and 50 nonzeros a row the projection is 0.0015
+    GiB, and 64 replicas (512 MiB) would overrun a 0.25 GiB budget that
+    method='auto' accepts. Too small a budget for one replica streams;
+    the projection itself stays the reference's."""
+    from repro.data import rowblocks as JRB
+    from repro_torch.data import projected_resident_gib
+    m, nn, s = 4096, 2**20, 50
+    X = random_tfidf(m=m, n=nn, nnz_per_row=s, seed=4)
+    y = np.random.default_rng(5).normal(size=m)
+    nnz = m * s
+    assert TO._csr_layout(X) == (m, nn, nnz, 8, nnz)
+    assert projected_resident_gib(X) == JRB.projected_resident_gib(
+        jax_sparse.CSRMatrix(X.data, X.indices, X.indptr, X.shape))
+    budget = 0.25
+    left = (budget * 2**30 - 8 * nnz - TO.VECTOR_BYTES * m
+            - TO.RMATVEC_COLUMN_BYTES * nn - 24 * nnz)
+    want = int(left // (8 * nn))
+    assert 1 <= want < TO.RMATVEC_REPLICAS
+    o = TO.make_oracle(X, y, method='auto', memory_budget=budget,
+                       csr_rmatvec='device', device='cpu')
+    assert isinstance(o, TO.PairwiseOracle) and o._feats._replicas == want
+    sizes = []
+    init = TO._ExactSum.__init__
+
+    def spy(self, bound, replicas=1):
+        init(self, bound, replicas)
+        sizes.append(self.acc.numel() * self.acc.element_size())
+
+    monkeypatch.setattr(TO._ExactSum, '__init__', spy)
+    w = np.random.default_rng(6).normal(size=nn) * 0.01
+    _, a = o.loss_and_subgrad(w)
+    assert sizes == [8 * want * nn] and sizes[0] <= left
+    host = TO.make_oracle(X, y, method='auto', memory_budget=budget,
+                          csr_rmatvec='host', device='cpu')
+    _, ah = host.loss_and_subgrad(w)
+    np.testing.assert_allclose(a.double().numpy(), ah, rtol=1e-5,
+                               atol=1e-5 * np.abs(ah).max())
+    # no budget: the full count, as before
+    assert TO.make_oracle(X, y, method='auto', device='cpu')._feats \
+        ._replicas == TO.RMATVEC_REPLICAS
+    # one replica short: 'auto' streams
+    tight = (8 * nnz + TO.VECTOR_BYTES * m + TO.RMATVEC_COLUMN_BYTES * nn
+             + 24 * nnz + 8 * nn - 1) / 2**30
+    assert projected_resident_gib(X) < tight
+    assert TO.csr_replicas(m, nn, nnz, 8, nnz, tight) == 0
+    assert isinstance(TO.make_oracle(X, y, method='auto', memory_budget=tight,
+                                     device='cpu'), TO.StreamingOracle)
+    assert TO.csr_replicas(m, nn, nnz, 8, nnz, tight + 2 / 2**30) == 1
