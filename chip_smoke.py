@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA H100: RankSVM training
-through the counting kernels, under each of its three losses, RWKV-6
-serving through the WKV forward kernel, and RWKV-6 training through both
-WKV kernels.
+through the counting kernels, under each of its three losses, along a
+regularization path, and RankSVM serving; RWKV-6 serving through the WKV
+forward kernel, and RWKV-6 training through both WKV kernels.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -37,19 +37,44 @@ line; any failure ends the run with a non-zero exit code:
            engine='tree' on the same data. The rank-counts kernel must
            have been launched in the first fit, and the two objectives
            must agree within eps.
-6. auto    `RankSVM(method='auto', engine='auto').fit` on `cadata_like`
+6. path    the regularization path on the main data: `RankSVM.path`
+           over lambda = 1e-1, 1e-2, 1e-3 (eps 1e-3, max_iter 300,
+           engine='pallas') in mode 'vmap' (every lambda at once over a
+           batched bundle state), 'sequential' and 'hybrid'. Every lambda
+           must converge; each vmap and hybrid J within eps of the
+           sequential one, and the lambda = 1e-3 J within eps of the main
+           fit's; the batched sweeps must launch the rank-counts kernel at
+           least L times per batched step; the vmap sweep's peak above its
+           start must stay within `path_state_gib(3, 136, m=2^20)`.
+           Prints each mode's seconds, iterations and ms per batched step,
+           and a profiled batched step beside a single-lambda one.
+7. serve   RankSVM serving at the main fit's w: a `Scorer` on the card,
+           warmed for 8 .. 4096 candidates, k = 10 and batches of 32,
+           then 2000 requests of 8 .. 4096 rows (log-uniform) of the main
+           data through `scores` and `top_k` (scores within 1e-5 of max
+           |s| of the float64 product; top-k equal to the stable argsort
+           of its own scores, bit for bit), 64 `rank_grouped` calls of 32
+           queries of 128 rows (equal to lexsort of (index, -s, g)), no
+           program added after warm; then a micro-batched
+           `RankingService` under 8 client threads of 250 requests with
+           one `swap_weights` halfway: every response equal to the direct
+           scorer's at the version it reports (scores within the same
+           bar, top-k equal but for ties within it). Prints p50/p99 ms of
+           each entry point and the batcher's requests/s and mean batch,
+           beside the card's name and power limit.
+8. auto    `RankSVM(method='auto', engine='auto').fit` on `cadata_like`
            at m = 4096 (8 features, real-valued utilities): the pairwise
            kernel must have been launched, and the objective must agree
            with the tree engine's within eps.
-7. guard   engine='pallas' on real-valued utilities at m = 2^20: more
+9. guard   engine='pallas' on real-valued utilities at m = 2^20: more
            distinct utilities than histogram levels, so the wrapper must
            count with the tree (no kernel launch) and equal it.
-8. sweep   the counting tiers on the card, for KERNEL_MAX_M and
+10. sweep   the counting tiers on the card, for KERNEL_MAX_M and
            DEFAULT_LEVELS: the pairwise kernel, the rank-counts call and
            the tree at m = 2^10 .. 2^16, and the rank-counts call against
            the tree at m = 2^20 with 64, 256 and 1024 distinct utilities;
            all agree bit for bit at every point.
-9. sparse  the paper's Reuters experiment at reuters_1m: `reuters_like`
+11. sparse  the paper's Reuters experiment at reuters_1m: `reuters_like`
            from --seed (m = 2^20 CSR rows of 49152 tf-idf columns, 50
            nonzeros a row, similarity utilities with r ~= m), features
            resident on the card. `RankSVM(method='tree').fit` counts
@@ -67,7 +92,7 @@ line; any failure ends the run with a non-zero exit code:
            and `method='auto'` on a 4096-row Reuters sample must launch
            the pairwise kernel every iteration, its counts at the fitted
            w equal to the CPU tree's.
-10. stream the same data streamed under memory_budget = 0.1953125 GiB
+12. stream the same data streamed under memory_budget = 0.1953125 GiB
            (half the features' 0.39 GiB on the card): method='auto' must
            pick the streaming oracle; the bytes allocated on the card
            above the phase's start (peak reset before each measured
@@ -77,7 +102,7 @@ line; any failure ends the run with a non-zero exit code:
            streamed fit's objective is within eps of the resident one;
            and five grades through the stream count with the
            rank-counts kernel, inside the budget.
-11. losses the loss axis: the main data (m = 2^20, 136 features, five
+13. losses the loss axis: the main data (m = 2^20, 136 features, five
            grades) in 8192 queries of 128 consecutive rows (about
            MSLR-WEB10K's documents per query). For 'toppush' and
            'poshinge': one grouped oracle call on the card, bit-identical
@@ -95,7 +120,7 @@ line; any failure ends the run with a non-zero exit code:
            (`core.joachims.counts_rlevel`) against the tree at m = 65536,
            r = 2 .. 2048 (`benchmarks/fig6_rlevels.py --full`): counts
            bit-equal, both times, and where they cross.
-12. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
+14. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
            layers, d = 2560, 40 heads of 64, d_ff = 8960, vocab 65536),
            seeded random weights made on the card, wkv_impl='kernel':
            prefill of B = 8 prompts of T = 4096 tokens (a cut of the
@@ -109,7 +134,7 @@ line; any failure ends the run with a non-zero exit code:
            prefill tokens/s, decode ms per token, the kernel's ms per
            call, and profiler windows over a prefill and decode steps.
            It releases its model before the next phase.
-13. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
+15. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
            weights as in lm, wkv_impl='kernel', remat='layer', AdamW
            (f32 master, m, v): first the gradients at B = 1, T = 256, the
            kernel route against the scan route on the same weights, every
@@ -126,7 +151,7 @@ line; any failure ends the run with a non-zero exit code:
            kernels' share of its device time), and both WKV kernels' times
            at the training shape (N = 160; the forward writing
            boundaries).
-14. time   where an iteration's time goes at the main shapes (CUDA
+16. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
            bundle steps (device busy share, device operations per step).
@@ -180,6 +205,16 @@ AUTO_M = 4096
 # r-level sweep of benchmarks/fig6_rlevels.py --full.
 QUERY_ROWS = 128
 RLEVEL_M, RLEVELS = 65536, (2, 8, 32, 128, 512, 2048)
+# The regularization path (path phase): the lambdas of the sweep.
+PATH_LAMS = (1e-1, 1e-2, 1e-3)
+# RankSVM serving (serve phase): requests of 8 .. 4096 candidates drawn
+# log-uniform (MSLR-WEB10K queries hold about 120), the top k, the
+# micro-batcher's clients and their requests, its launch cap, and the
+# grouped calls (queries of QUERY_ROWS rows, as many as fill the largest
+# warmed bucket).
+SERVE_REQUESTS, SERVE_MIN_ROWS, SERVE_MAX_ROWS, SERVE_K = 2000, 8, 4096, 10
+SERVE_CLIENTS, SERVE_CLIENT_REQUESTS, SERVE_MAX_BATCH = 8, 250, 32
+GROUPED_CALLS = 64
 # RWKV-6 serving (lm phase): prefill batch and length (prefill_32k is
 # 32 x 32768), greedy decode steps, and the consistency checks' shape.
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 4096, 32
@@ -494,6 +529,7 @@ def phase_main(ctx):
     j_t = svm_t.objective(X, y)
     check(abs(j_k - j_t) <= EPS,
           f'objectives differ: pallas {j_k} vs tree {j_t}')
+    ctx['objective_main'] = j_k
     res = dict(m=M, n=N_FEATURES, grades=len(GRADE_SHARES),
                launches=launches, objective_pallas=j_k, objective_tree=j_t)
     for name, rep in (('pallas', rep_k), ('tree', rep_t)):
@@ -501,6 +537,233 @@ def phase_main(ctx):
                          gap=rep.gap, solver=rep.solver, seconds=rep.seconds,
                          ms_per_iteration=1e3 * rep.seconds / rep.iterations)
     return res
+
+
+def _objective(ctx, w, lam):
+    """J(w) = R_emp(w) + lam ||w||^2 on the main data, as the main phase
+    evaluates its fits (`RankSVM.objective`)."""
+    from repro_torch.core.ranksvm import RankSVM
+    svm = RankSVM(lam=lam, device=ctx['dev'])
+    svm.w_ = w
+    return svm.objective(ctx['X'], ctx['y'])
+
+
+def phase_path(ctx):
+    """The regularization path on the main data: `RankSVM.path` over
+    PATH_LAMS in each mode through the rank-counts kernel; the batched
+    sweep's memory against `path_state_gib`, its launches, and one
+    profiled batched step beside a single-lambda one."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.core.bmrm import path_state_gib
+    from repro_torch.core.ranksvm import RankSVM
+    X, y = ctx['X'], ctx['y']
+    n_lams = len(PATH_LAMS)
+    budget = path_state_gib(n_lams, N_FEATURES, m=M) * 2**30
+    res = dict(m=M, n=N_FEATURES, lams=list(PATH_LAMS), eps=EPS,
+               max_iter=MAX_ITER, state_budget_bytes=budget)
+    objectives, launches_all = {}, 0
+    for mode in ('vmap', 'sequential', 'hybrid'):   # vmap from a clean start
+        svm = RankSVM(eps=EPS, method='tree', engine='pallas',
+                      max_iter=MAX_ITER, device=dev)
+        _reset_counts()
+        pts, peak, ms = _peak_above(
+            torch, None, lambda: svm.path(X, y, PATH_LAMS, mode=mode))
+        launches = _counts()['rank_counts']
+        launches_all += launches
+        iters = [p.report.iterations for p in pts]
+        solvers = [p.report.solver for p in pts]
+        check(all(p.report.converged for p in pts),
+              f'{mode} path: a lambda did not converge ({iters})')
+        objectives[mode] = [_objective(ctx, p.w, p.lam) for p in pts]
+        row = dict(seconds=ms / 1e3, iterations=iters,
+                   iterations_total=sum(iters), solvers=solvers,
+                   objectives=objectives[mode],
+                   rank_counts_launches=launches, peak_bytes_above_start=peak)
+        batched = [p for p, sv in zip(pts, solvers) if sv == 'vmap']
+        check((mode == 'sequential') == (not batched),
+              f'{mode} path ran solvers {solvers}')
+        if batched:
+            steps = max(p.report.iterations for p in batched)
+            secs = sum(p.report.seconds for p in batched)
+            check(launches >= len(batched) * steps,
+                  f'{mode} path: {launches} rank-counts launches for '
+                  f'{len(batched)} lambdas x {steps} batched steps')
+            row.update(batched_steps=steps, batched_seconds=secs,
+                       ms_per_batched_step=1e3 * secs / steps)
+        res[mode] = row
+        del svm, pts
+    check(res['vmap']['peak_bytes_above_start'] <= budget,
+          f'the batched sweep took {res["vmap"]["peak_bytes_above_start"]} '
+          f'bytes above its start, over path_state_gib\'s {budget}')
+    for mode in ('vmap', 'hybrid'):
+        for lam, a, b in zip(PATH_LAMS, objectives[mode],
+                             objectives['sequential']):
+            check(abs(a - b) <= EPS, f'{mode} J = {a} vs sequential {b} at '
+                  f'lambda {lam}')
+    for mode, objs in objectives.items():
+        check(abs(objs[-1] - ctx['objective_main']) <= EPS,
+              f'{mode} J = {objs[-1]} at lambda {PATH_LAMS[-1]} vs the main '
+              f'fit\'s {ctx["objective_main"]}')
+    ctx['launches']['rank_counts_path'] = launches_all
+    res['bundle_step_single'] = _profile_bundle_step(ctx)
+    res['bundle_step_batched'] = _profile_bundle_step(ctx, lams=PATH_LAMS)
+    return res
+
+
+def _pcts(ms):
+    import numpy as np
+    return dict(p50_ms=float(np.percentile(ms, 50)),
+                p99_ms=float(np.percentile(ms, 99)), calls=len(ms))
+
+
+def phase_serve(ctx):
+    """RankSVM serving on the card at the main fit's w: the bucketed
+    scorer's entry points, grouped ranking, and the micro-batched service
+    under eight client threads with one hot swap."""
+    import threading
+    import numpy as np
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.serve import RankingService, Scorer
+    rng = np.random.default_rng(ctx['seed'] + 7)
+    Xh = ctx['X'].cpu().numpy()
+    w0 = np.asarray(ctx['w_main'], np.float32)
+    w1 = (2.0 * w0 + 0.25 * rng.standard_normal(w0.shape)).astype(
+        np.float32)
+    weights = {0: w0, 1: w1}
+
+    def draw(g, count):
+        n = np.exp(g.uniform(np.log(SERVE_MIN_ROWS), np.log(SERVE_MAX_ROWS),
+                             count)).astype(np.int64)
+        n = np.clip(n, SERVE_MIN_ROWS, SERVE_MAX_ROWS)
+        return [(int(s0), int(k)) for s0, k in
+                zip(g.integers(0, M - n + 1), n)]
+
+    sc = Scorer(w0, device=dev)
+    t0 = time.perf_counter()
+    n_warm = sc.warm(SERVE_MAX_ROWS, ks=(SERVE_K,),
+                     max_batch=SERVE_MAX_BATCH, grouped=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    sizes = sc.program_cache_sizes()
+    lat = dict(scores=[], top_k=[], rank_grouped=[])
+    worst = 0.0
+    reqs = draw(rng, SERVE_REQUESTS)
+    for s0, n in reqs:
+        X = Xh[s0:s0 + n]
+        t0 = time.perf_counter()
+        s = sc.scores(X)
+        lat['scores'].append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        v, i = sc.top_k(X, SERVE_K)
+        lat['top_k'].append(1e3 * (time.perf_counter() - t0))
+        ref = X.astype(np.float64) @ w0.astype(np.float64)
+        err = float(np.abs(s - ref).max() / max(np.abs(ref).max(), 1e-30))
+        worst = max(worst, err)
+        check(err <= 1e-5, f'scores of {n} candidates off the float64 '
+              f'product by {err} of max |s|')
+        own = np.argsort(-s, kind='stable')[:SERVE_K]
+        check(np.array_equal(i, own) and np.array_equal(v, s[own]),
+              f'top_k of {n} candidates differs from the stable argsort of '
+              'its own scores')
+    q_rows = QUERY_ROWS
+    per_call = SERVE_MAX_ROWS // q_rows
+    for _ in range(GROUPED_CALLS):
+        qs = rng.choice(M // q_rows, per_call, replace=False)
+        rows = (qs[:, None] * q_rows + np.arange(q_rows)).ravel()
+        perm = rng.permutation(rows.size)
+        X, g = Xh[rows[perm]], (rows[perm] // q_rows).astype(np.int32)
+        t0 = time.perf_counter()
+        order = sc.rank_grouped(X, g)
+        lat['rank_grouped'].append(1e3 * (time.perf_counter() - t0))
+        s = sc.scores(X)
+        check(np.array_equal(order, np.lexsort(
+            (np.arange(rows.size), -s.astype(np.float64), g))),
+            'rank_grouped differs from lexsort of (index, -s, g)')
+    check(sc.n_programs == n_warm and sc.program_cache_sizes() == sizes,
+          f'traffic added programs after warm: {sc.n_programs} vs {n_warm}')
+
+    # The micro-batched service: SERVE_CLIENTS threads, one swap halfway.
+    svc = RankingService(w0, device=dev, max_batch=SERVE_MAX_BATCH)
+    svc.warmup(SERVE_MAX_ROWS, ks=(SERVE_K,))
+    n_svc = svc.scorer.n_programs
+    total = SERVE_CLIENTS * SERVE_CLIENT_REQUESTS
+    lock, half = threading.Lock(), threading.Event()
+    served, errors, done = {}, [], [0]
+
+    def client(c):
+        got = []
+        try:
+            for s0, n in draw(np.random.default_rng(
+                    [ctx['seed'], c]), SERVE_CLIENT_REQUESTS):
+                t0 = time.perf_counter()
+                r = svc.submit(Xh[s0:s0 + n], SERVE_K).result(120.0)
+                got.append((s0, n, r, 1e3 * (time.perf_counter() - t0)))
+                with lock:
+                    done[0] += 1
+                    if done[0] == total // 2:
+                        half.set()
+        except Exception as e:             # reported below, fails the phase
+            errors.append(f'{type(e).__name__}: {e}')
+            half.set()
+        served[c] = got
+
+    def swapper():
+        half.wait(600.0)
+        svc.swap_weights(w1)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)] + [
+        threading.Thread(target=swapper)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600.0)
+    wall = time.perf_counter() - t0
+    stats = svc.stats()
+    svc.close()
+    check(not errors and not any(th.is_alive() for th in threads),
+          f'micro-batched clients failed: {errors[:3]}')
+    got = [x for c in range(SERVE_CLIENTS) for x in served[c]]
+    check(len(got) == total, f'{len(got)} of {total} requests served')
+    versions = sorted({r.version for _, _, r, _ in got})
+    check(versions == [0, 1], f'the traffic saw versions {versions}')
+    check(svc.scorer.n_programs == n_svc, 'batched traffic added programs')
+    direct = {v: Scorer(w, device=dev) for v, w in weights.items()}
+    exact = 0
+    for s0, n, r, _ in got:
+        X = Xh[s0:s0 + n]
+        ds = direct[r.version].scores(X)
+        dv, di = direct[r.version].top_k(X, SERVE_K)
+        bar = 1e-5 * max(float(np.abs(ds).max()), 1e-30)
+        check(float(np.abs(r.scores - ds).max()) <= bar,
+              f'a batched response differs from the direct scorer at '
+              f'version {r.version}')
+        own = np.argsort(-r.scores, kind='stable')[:SERVE_K]
+        check(np.array_equal(r.indices, own)
+              and np.array_equal(r.values, r.scores[own]),
+              'a batched top-k differs from its own scores\' stable argsort')
+        if np.array_equal(r.indices, di):
+            exact += 1
+        else:
+            # the batched product may round differently: only candidates
+            # tied with the direct top-k within the bar may trade places
+            check(np.allclose(ds[r.indices], dv, rtol=0.0, atol=bar),
+                  f'a batched top-k differs from the direct one at version '
+                  f'{r.version} beyond a tie')
+    return dict(card=_card(), requests=SERVE_REQUESTS, k=SERVE_K,
+                rows=[SERVE_MIN_ROWS, SERVE_MAX_ROWS], programs=n_warm,
+                warm_seconds=warm_s, scores_max_rel_err=worst,
+                scores=_pcts(lat['scores']), top_k=_pcts(lat['top_k']),
+                rank_grouped=dict(_pcts(lat['rank_grouped']),
+                                  queries_per_call=per_call,
+                                  query_rows=q_rows),
+                batcher=dict(clients=SERVE_CLIENTS, requests=total,
+                             seconds=wall, requests_per_s=total / wall,
+                             mean_batch=stats['mean_batch'],
+                             launches=stats['n_batches'], versions=versions,
+                             top_k_equal_direct=exact,
+                             **_pcts([x[3] for x in got])))
 
 
 def phase_auto(ctx):
@@ -1149,10 +1412,13 @@ def _rank_counts_row(ctx):
     # bound (they are printed as `table_bytes`).
     m = p.shape[0]
     yr, planes, table = got[2]
+    main, path = (ctx['launches']['rank_counts'],
+                  ctx['launches']['rank_counts_path'])
     return _row('rank_counts', 'src/repro_torch/kernels/csrc/rank_counts.cu',
                 'src/repro/kernels/rank_counts/kernel.py:59',
-                ctx['launches']['rank_counts'], err, ms, plain_ms, 16 * m,
-                None, m=m, n_ranks=n_ranks, tj=tj, events_ms=events_ms,
+                main + path, err, ms, plain_ms, 16 * m,
+                None, launches_main=main, launches_path=path,
+                m=m, n_ranks=n_ranks, tj=tj, events_ms=events_ms,
                 band_compares=0,
                 table_bytes=4 * (planes.numel() + table.numel()),
                 wrapper_ms=wrapper_ms,
@@ -1722,19 +1988,25 @@ def phase_time(ctx):
     return out
 
 
-def _profile_bundle_step(ctx, steps: int = 3):
+def _profile_bundle_step(ctx, steps: int = 3, lams=None):
     """Device busy share and kernel launches of device-driver bundle
     steps at the main shapes (engine='pallas'), from torch.profiler: the
-    union of the CUDA kernels' intervals against the window's wall time."""
+    union of the CUDA kernels' intervals against the window's wall time.
+    With `lams`, batched steps of the path sweep, one row per lambda."""
     torch, dev = ctx['torch'], ctx['dev']
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.bmrm import (DEFAULT_MAX_PLANES, _bundle_step,
-                                       init_bundle_state)
+                                       init_bundle_state, init_path_state)
     from repro_torch.core.oracle import make_oracle
     from repro_torch.kernels.platform import full_f32
     oracle = make_oracle(ctx['X'], ctx['y'], engine='pallas', device=dev)
-    state = init_bundle_state(oracle.n, DEFAULT_MAX_PLANES, device=dev)
-    lam = torch.tensor(LAM, device=dev)
+    if lams is None:
+        state = init_bundle_state(oracle.n, DEFAULT_MAX_PLANES, device=dev)
+        lam = torch.tensor(LAM, device=dev)
+    else:
+        state = init_path_state(oracle.n, DEFAULT_MAX_PLANES, len(lams),
+                                device=dev)
+        lam = torch.tensor(lams, device=dev)
     eps = torch.tensor(EPS, device=dev)
     step = oracle.step_fn()
     with full_f32():
@@ -1796,11 +2068,21 @@ def _top_kernels(prof, k=6):
 PHASES = (('build', phase_build), ('parity', phase_parity),
           ('wkv_parity', phase_wkv_parity),
           ('wkv_bwd_parity', phase_wkv_bwd_parity), ('main', phase_main),
-          ('auto', phase_auto), ('guard', phase_guard),
+          ('path', phase_path), ('serve', phase_serve), ('auto', phase_auto), ('guard', phase_guard),
           ('sweep', phase_sweep), ('sparse', phase_sparse),
           ('stream', phase_stream), ('losses', phase_losses),
           ('lm', phase_lm),
           ('train', phase_train), ('time', phase_time))
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f'nvidia-smi failed: {smi.stderr.strip()}')
 
 
 def main(argv=None) -> int:
@@ -1832,12 +2114,7 @@ def main(argv=None) -> int:
             return 1
         emit(phase=name, ok=True, wall_seconds=time.perf_counter() - t0,
              **res)
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f'nvidia-smi failed: {smi.stderr.strip()}')
+    print(_card())
     emit(kernels=ctx['rows'], total_seconds=time.perf_counter() - t_all)
     emit(ok=True, device=dict(platform='gpu',
                               kind=torch.cuda.get_device_name(0),

@@ -8,6 +8,11 @@ It returns the port's `RankSVM` with `w_` set and the same state as a
 torch `BundleState` on `device`, so the two packages score alike and
 take the same next BMRM step from there. Nothing of the JAX package is
 imported: the arguments are numpy arrays or anything numpy can read.
+The same call carries the L-leading state of a batched path sweep (the
+reference's `init_path_state` or a vmap result's fields): every field
+keeps its leading lambda axis, so `bmrm_path`'s batched driver of either
+package can start from one state. `path_point_from_reference(point)`
+carries a reference `PathPoint` (lam, w, report) across.
 
 `lm_params_from_reference(tree)` does the same for an LM: it takes the
 reference's parameter pytree (nested dicts, layers stacked) as float32
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from .core.bmrm import BundleState
-from .core.ranksvm import RankSVM
+from .core.ranksvm import FitReport, PathPoint, RankSVM
 from .kernels.platform import resolve_device
 from .models.lm import from_state_dict, state_dict_from_tree
 
@@ -34,17 +39,37 @@ _DTYPES = {'n_active': torch.int32, 'done': torch.bool}
 
 def bundle_state_from_arrays(fields, device=None) -> BundleState:
     """A torch `BundleState` from a mapping (or namedtuple) of arrays with
-    the reference's field names."""
+    the reference's field names: one lambda's state, or a batched one
+    with a leading lambda axis on every field."""
     dev = resolve_device(device)
     if hasattr(fields, '_asdict'):
         fields = fields._asdict()
     missing = [f for f in BundleState._fields if f not in fields]
     if missing:
         raise ValueError(f'bundle state lacks fields {missing}')
-    return BundleState(**{
+    state = BundleState(**{
         f: torch.as_tensor(np.array(fields[f]),
                            dtype=_DTYPES.get(f, torch.float32), device=dev)
         for f in BundleState._fields})
+    lead = tuple(state.j_best.shape)
+    for f, t in zip(BundleState._fields, state):
+        if tuple(t.shape[:len(lead)]) != lead:
+            raise ValueError(f'bundle state field {f} has shape '
+                             f'{tuple(t.shape)}; every field must lead '
+                             f'with j_best\'s {lead}')
+    return state
+
+
+def path_point_from_reference(point) -> PathPoint:
+    """The port's `PathPoint` from a reference `PathPoint`: lam, w as
+    float64 numpy and the report's fields, copied."""
+    rep = point.report
+    report = FitReport(**{f: getattr(rep, f)
+                          for f in FitReport.__dataclass_fields__})
+    report.loss_history = [float(x) for x in report.loss_history]
+    return PathPoint(lam=float(point.lam),
+                     w=np.asarray(point.w, np.float64).copy(),
+                     report=report)
 
 
 def from_reference(w, bundle_state=None, *, device=None, **ranksvm_kwargs):

@@ -28,6 +28,17 @@ cache. Capturing a chunk in a CUDA graph is later work.
 prefers it (`prefer_device_solver`: not for a CSR oracle whose
 transpose-matvec runs on the host, nor for a streamed CSR source), and
 eps is at or above the float32 noise floor.
+
+**Regularization path** (`bmrm_path`, DESIGN.md §7): 'sequential' fits
+one lambda after another, each warm-started from the last one's planes;
+'vmap' steps every lambda at once over a bundle state with a leading
+lambda axis (`init_path_state`), the counterpart of the reference's
+vmapped program: `_bundle_step` carries the axis through every tensor
+operation, the oracle takes a batch of iterates (`supports_path_vmap`),
+and a converged lambda's slice is frozen by its done flag; 'hybrid'
+runs a sequential prefix and broadcasts its planes to a batched tail.
+'auto' batches on the card and stays sequential on the CPU (where the
+reference measured the batched sweep 2-8x slower).
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ import numpy as np
 import torch
 
 from ..kernels.platform import full_f32
-from .qp import solve_bundle_dual, solve_bundle_dual_torch
+from .qp import _dot, _mv, solve_bundle_dual, solve_bundle_dual_torch
 
 f32 = torch.float32
 
@@ -73,6 +84,10 @@ class BMRMStats:
     # the chunk's wall time split evenly over its steps
     qp_seconds: list      # host driver only
     solver: str = 'host'
+    seconds: float = float('nan')  # the fit's wall time, filled by
+    # `bmrm_path`; in mode='vmap' each lambda's share of the joint sweep
+    # (a batched step's wall split evenly over the lambdas active in it,
+    # so seconds == sum(oracle_seconds))
 
 
 @dataclasses.dataclass
@@ -315,41 +330,48 @@ def init_bundle_state(dim: int, max_planes: int, w0=None,
 def _bundle_step(s: BundleState, step_fn, lam, eps, qp_iters: int):
     """ONE BMRM iteration over the fixed-capacity state, with no read
     back to the host: the slot of the new plane is selected by a one-hot
-    mask instead of an index. Returns (new state, R_emp)."""
-    K = s.b.shape[0]
+    mask instead of an index. Returns (new state, R_emp).
+
+    The same code steps a batched state, every field with a leading
+    lambda axis (`init_path_state`), when `step_fn` takes (L, n) iterates
+    and `lam` is (L,): every operation below then carries the lambda
+    axis, so a batched step issues the launches of one step (the
+    oracle's per-row counting aside) where the reference vmaps it."""
+    K = s.b.shape[-1]
     r_emp, a = step_fn(s.w)
     r_emp = r_emp.to(f32)
     a = a.to(f32)
 
-    wa = s.w @ a
-    j_prev = r_emp + lam * (s.w @ s.w)
+    wa = _dot(s.w, a)
+    j_prev = r_emp + lam * _dot(s.w, s.w)
     better = j_prev < s.j_best
     j_best = torch.where(better, j_prev, s.j_best)
-    w_best = torch.where(better, s.w, s.w_best)
+    w_best = torch.where(better[..., None], s.w, s.w_best)
 
     # Insert slot: next free, or (buffer full) the least-active plane.
     idx = torch.arange(K, dtype=torch.int32, device=a.device)
     full = s.n_active >= K
-    masked_alpha = torch.where(idx < s.n_active, s.alpha,
+    masked_alpha = torch.where(idx < s.n_active[..., None], s.alpha,
                                torch.full_like(s.alpha, float('inf')))
-    slot = torch.where(full, torch.argmin(masked_alpha).to(torch.int32),
-                       s.n_active)
-    hot = idx == slot
-    A = torch.where(hot[:, None], a[None, :], s.A)
+    slot = torch.where(full, torch.argmin(masked_alpha, dim=-1).to(
+        torch.int32), s.n_active)
+    hot = idx == slot[..., None]
+    A = torch.where(hot[..., None], a[..., None, :], s.A)
     # The slot's support iterate: the new plane is R_emp's tangent at s.w.
-    S = torch.where(hot[:, None], s.w[None, :], s.S)
-    cross = A @ a
-    G = torch.where(hot[:, None], cross[None, :], s.G)
-    G = torch.where(hot[None, :], cross[:, None], G)
-    b = torch.where(hot, r_emp - wa, s.b)
+    S = torch.where(hot[..., None], s.w[..., None, :], s.S)
+    cross = _mv(A, a)
+    G = torch.where(hot[..., None], cross[..., None, :], s.G)
+    G = torch.where(hot[..., None, :], cross[..., :, None], G)
+    b = torch.where(hot, (r_emp - wa)[..., None], s.b)
     n_active = torch.clamp(s.n_active + 1, max=K)
-    mask = idx < n_active
+    mask = idx < n_active[..., None]
 
     # Warm-started masked QP; the new plane enters with a small weight.
     alpha0 = torch.where(hot, torch.full_like(s.alpha, 1e-3), s.alpha)
     alpha, dual = solve_bundle_dual_torch(G, b, lam, mask, alpha0=alpha0,
                                           n_iter=qp_iters)
-    w = -(A.T @ alpha) / (2.0 * lam)
+    lam_v = torch.as_tensor(lam, dtype=f32, device=a.device)[..., None]
+    w = -_mv(A.mT, alpha) / (2.0 * lam_v)
 
     # Gap against the DUAL value: an under-converged QP can only inflate
     # it, never fake convergence.
@@ -361,9 +383,31 @@ def _bundle_step(s: BundleState, step_fn, lam, eps, qp_iters: int):
 
 
 def _keep_if_done(s: BundleState, new: BundleState) -> BundleState:
-    """The state after a step: unchanged where `s` had converged."""
-    return BundleState(*(torch.where(s.done, old, nw)
-                         for old, nw in zip(s, new)))
+    """The state after a step: unchanged where `s` had converged (per
+    lambda for a batched state)."""
+    def keep(old, nw):
+        done = s.done.view(s.done.shape + (1,) * (old.dim() - s.done.dim()))
+        return torch.where(done, old, nw)
+    return BundleState(*(keep(old, nw) for old, nw in zip(s, new)))
+
+
+def _run_chunk(state: BundleState, step_fn, lam, eps, qp_iters: int,
+               steps: int):
+    """`steps` bundle steps with converged states frozen, then the one
+    read-back: (state, host array (3, steps[, L]) of the losses (NaN
+    where frozen), the gaps and the active flags)."""
+    nan = torch.tensor(float('nan'), dtype=f32, device=state.w.device)
+    losses, gaps, valids = [], [], []
+    for _ in range(steps):
+        new, r = _bundle_step(state, step_fn, lam, eps, qp_iters)
+        valid = ~state.done
+        state = _keep_if_done(state, new)
+        losses.append(torch.where(valid, r, nan))
+        gaps.append(state.gap)
+        valids.append(valid)
+    out = torch.stack([torch.stack(losses), torch.stack(gaps),
+                       torch.stack(valids).to(f32)]).cpu().numpy()
+    return state, out
 
 
 def _next_sync_every(gaps: np.ndarray, eps: float, cur: int) -> int:
@@ -402,36 +446,17 @@ def _bmrm_device(oracle, dim, lam, eps, max_iter, w0, max_planes, callback,
         if tuple(state.A.shape) != (K, dim):
             raise ValueError(f'warm-start state has buffer '
                              f'{tuple(state.A.shape)}, expected {(K, dim)}')
-        # Planes stay (they under-estimate R_emp for ANY lam); the scalar
-        # statistics depend on lam and reset.
-        state = BundleState(*(t.to(dev) for t in state))
-        w = (state.w if w0 is None
-             else torch.as_tensor(np.asarray(w0), dtype=f32, device=dev))
-        state = state._replace(
-            w=w, w_best=w,
-            j_best=torch.tensor(np.inf, dtype=f32, device=dev),
-            gap=torch.tensor(np.inf, dtype=f32, device=dev),
-            done=torch.tensor(False, device=dev))
+        state = _reset_stats(BundleState(*(t.to(dev) for t in state)), w0)
 
     step_fn = oracle.step_fn()
     lam_d = torch.tensor(lam, dtype=f32, device=dev)
     eps_d = torch.tensor(eps, dtype=f32, device=dev)
-    nan = torch.tensor(float('nan'), dtype=f32, device=dev)
     stats = BMRMStats(0, False, np.inf, np.inf, [], [], [], [],
                       solver='device')
     while True:                       # always >= 1 chunk
         t0 = time.perf_counter()
-        losses, gaps, valids = [], [], []
-        for _ in range(cur_sync):
-            new, r = _bundle_step(state, step_fn, lam_d, eps_d, qp_iters)
-            valid = ~state.done
-            state = _keep_if_done(state, new)
-            losses.append(torch.where(valid, r, nan))
-            gaps.append(state.gap)
-            valids.append(valid)
-        # The one read-back per chunk.
-        out = torch.stack([torch.stack(losses), torch.stack(gaps),
-                           torch.stack(valids).to(f32)]).cpu().numpy()
+        state, out = _run_chunk(state, step_fn, lam_d, eps_d, qp_iters,
+                                cur_sync)
         dt = time.perf_counter() - t0
         v = out[2] > 0.5
         steps = int(v.sum())
@@ -454,3 +479,331 @@ def _bmrm_device(oracle, dim, lam, eps, max_iter, w0, max_planes, callback,
     stats.gap = float(state.gap)
     return BMRMResult(w=state.w_best.double().cpu().numpy(), stats=stats,
                       state=state)
+
+
+# ------------------------------------------------------ batched path sweep
+
+
+PATH_MODES = ('vmap', 'sequential', 'hybrid', 'auto')
+
+# Sequential-warm prefix of mode='hybrid': the first fit does the heavy
+# lifting, the second starts warm, and the rest batch.
+DEFAULT_HYBRID_PREFIX = 2
+
+
+def _validate_path_mode(mode: str) -> str:
+    """The one mode check of `bmrm_path` and `RankSVM.path`; the
+    estimator runs it before it builds its oracle."""
+    if mode not in PATH_MODES:
+        raise ValueError(f'unknown path mode {mode!r}; expected one of '
+                         f'{PATH_MODES}')
+    return mode
+
+
+def _validate_lams(lams) -> list:
+    """Regularization-path lambdas as a validated list of floats.
+
+    Any order, duplicates included, is accepted; every value must be a
+    finite positive float whose float32 cast is a normal number, since
+    lambda divides the master-problem update w = -A'alpha / (2 lam) on
+    the device in float32."""
+    try:
+        lams = [float(lam) for lam in np.asarray(lams).ravel()]
+    except (TypeError, ValueError) as e:
+        raise ValueError(f'path lambdas must be real numbers; got {lams!r}'
+                         ) from e
+    if not lams:
+        raise ValueError('a regularization path needs at least one lambda')
+    tiny = float(np.finfo(np.float32).tiny)      # smallest NORMAL f32
+    bad = [lam for lam in lams if not math.isfinite(lam) or lam <= 0.0
+           or not tiny <= float(np.float32(lam)) < math.inf]
+    if bad:
+        raise ValueError(
+            f'path lambdas must be finite, > 0, and a normal float32 (in '
+            f'[{tiny:.3g}, ~3.4e38]) — the device drivers compute in f32 '
+            f'— got {bad}: lambda scales 1/(2 lam) in the master problem, '
+            'so a value that is zero/non-finite, overflows the f32 cast, '
+            'or lands subnormal poisons every iterate')
+    return lams
+
+
+def path_state_gib(n_lams: int, dim: int, max_planes: int | None = None,
+                   m: int = 0) -> float:
+    """Projected GiB that the batched (vmap) sweep adds on the device.
+
+    The reference's model, kept: each of the `n_lams` lambdas holds its
+    own float32 `BundleState` (the (max_planes, dim) plane and support
+    buffers dominate) plus the step's per-example working set, about 8
+    float32 values an example. The port's batched step holds, per lambda
+    and example, the scores and the counts (12 bytes) through the
+    counting pass, whose sort (values and int64 order) and scratch go
+    row by row, and then the scores, the coefficients and the loss's
+    temporaries (20 bytes): inside the 32 of the model
+    (`chip_smoke.py`'s path phase measures the peak against it). The
+    features, shared by every mode, are not counted."""
+    planes = int(max_planes) if max_planes is not None else DEFAULT_MAX_PLANES
+    per_lam = 4.0 * (2 * planes * dim     # plane buffer A + iterate buffer S
+                     + 2 * dim            # w, w_best
+                     + planes * planes    # Gram
+                     + 3 * planes + 8     # b, alpha, masks, scalars
+                     + 8 * m)             # oracle-step per-example work set
+    return int(n_lams) * per_lam / 2**30
+
+
+def _reset_stats(state: BundleState, w0=None) -> BundleState:
+    """A warm start's state: planes kept (they under-estimate R_emp for
+    any lambda), the lambda-dependent statistics reset."""
+    dev = state.w.device
+    lead = state.j_best.shape
+    w = (state.w if w0 is None else torch.as_tensor(
+        np.asarray(w0), dtype=f32, device=dev).expand_as(state.w).clone())
+    return state._replace(
+        w=w, w_best=w, j_best=torch.full(lead, np.inf, dtype=f32, device=dev),
+        gap=torch.full(lead, np.inf, dtype=f32, device=dev),
+        done=torch.zeros(lead, dtype=torch.bool, device=dev))
+
+
+def init_path_state(dim: int, max_planes: int, n_lams: int, w0=None,
+                    state: 'BundleState | None' = None,
+                    device='cuda') -> BundleState:
+    """A (n_lams, ...)-leading `BundleState`: slice k of every field is
+    lambda k's bundle state.
+
+    Without `state` every lambda starts cold from the shared w0. With a
+    scalar `state` (the last fit of a sequential prefix, in the hybrid
+    sweep) every slice starts from its planes with the statistics reset,
+    as `bmrm(..., state=)` does. A state that already has the leading
+    lambda axis (a batched state carried across, `repro_torch.convert`)
+    is taken slice for slice, statistics reset the same way."""
+    K, n, L = int(max_planes), int(dim), int(n_lams)
+    if state is None:
+        s = init_bundle_state(n, K, w0, device=device)
+    else:
+        shape = tuple(state.A.shape)
+        if shape == (L, K, n):
+            return _reset_stats(BundleState(*(t.to(device) for t in state)),
+                                w0)
+        if shape != (K, n):
+            raise ValueError(f'seed state has buffer {shape}, expected '
+                             f'{(K, n)} or {(L, K, n)}')
+        s = _reset_stats(BundleState(*(t.to(device) for t in state)), w0)
+    return BundleState(*(t[None].expand((L,) + t.shape).clone() for t in s))
+
+
+def _path_on_cpu(oracle) -> bool:
+    """Whether the oracle computes on the CPU, where 'auto' keeps the
+    sequential sweep (the reference's measured rule for its serial CPU
+    backend); the card batches."""
+    return torch.device(oracle.device).type == 'cpu'
+
+
+def _bmrm_path_vmap(oracle, lams, dim, eps, max_iter, w0, max_planes,
+                    sync_every, qp_iters, callback,
+                    init_state: 'BundleState | None' = None
+                    ) -> 'list[BMRMResult]':
+    """The batched path driver: one (L, ...)-leading state steps every
+    lambda at once, `sync_every` steps per read-back; converged slices
+    are frozen by their done flags, and the loop ends when every lambda
+    is done (or the shared step count reaches max_iter: lambdas advance
+    in lockstep)."""
+    dev = oracle.device
+    K = int(max_planes) if max_planes is not None else DEFAULT_MAX_PLANES
+    n_lams = len(lams)
+    auto_sync = sync_every == 'auto'
+    cur_sync = AUTO_SYNC_INIT if auto_sync else max(1, int(sync_every))
+
+    state = init_path_state(dim, K, n_lams, w0, state=init_state,
+                            device=dev)
+    step_fn = oracle.step_fn()
+    lams_d = torch.tensor(lams, dtype=f32, device=dev)
+    eps_d = torch.tensor(eps, dtype=f32, device=dev)
+
+    iters = np.zeros(n_lams, np.int64)
+    loss_hist = [[] for _ in range(n_lams)]
+    gap_hist = [[] for _ in range(n_lams)]
+    secs = [[] for _ in range(n_lams)]
+    steps_total = 0
+    with full_f32():
+        while True:
+            t0 = time.perf_counter()
+            state, out = _run_chunk(state, step_fn, lams_d, eps_d, qp_iters,
+                                    cur_sync)
+            dt = time.perf_counter() - t0
+            losses = out[0].astype(np.float64)       # (sync, L)
+            gaps_np = out[1].astype(np.float64)
+            acts = out[2] > 0.5
+            ran = acts.any(axis=1)                   # batched steps that ran
+            steps = int(ran.sum())
+            steps_total += steps
+            # Each batched step's wall splits evenly over the lambdas
+            # active in it, so the shares sum to the sweep's wall.
+            n_active = acts.sum(axis=1)
+            step_wall = dt / max(steps, 1)
+            for k in range(n_lams):
+                on = acts[:, k]
+                nk = int(on.sum())
+                if nk:
+                    iters[k] += nk
+                    loss_hist[k].extend(losses[on, k])
+                    gap_hist[k].extend(gaps_np[on, k])
+                    secs[k].extend(step_wall / n_active[on])
+            if callback is not None:
+                callback(steps_total, state.w, state.j_best.cpu().numpy(),
+                         state.gap.cpu().numpy())
+            if bool(state.done.all()) or steps_total >= max_iter:
+                break
+            if auto_sync:
+                # Tune on the slowest lambda: all-done ends the loop.
+                act_gaps = np.where(acts[ran], gaps_np[ran], -np.inf)
+                cur_sync = _next_sync_every(act_gaps.max(axis=1), eps,
+                                            cur_sync)
+
+    done = state.done.cpu().numpy()
+    j_best = state.j_best.double().cpu().numpy()
+    gap = state.gap.double().cpu().numpy()
+    w_best = state.w_best.double().cpu().numpy()
+    results = []
+    for k in range(n_lams):
+        stats = BMRMStats(
+            iterations=int(iters[k]), converged=bool(done[k]),
+            obj_best=float(j_best[k]), gap=float(gap[k]),
+            loss_history=loss_hist[k], gap_history=gap_hist[k],
+            oracle_seconds=secs[k], qp_seconds=[], solver='vmap',
+            seconds=float(np.sum(secs[k])))
+        results.append(BMRMResult(
+            w=w_best[k], stats=stats,
+            state=BundleState(*(t[k] for t in state))))
+    return results
+
+
+def bmrm_path(oracle, lams, *, mode: str = 'auto', eps: float = 1e-3,
+              max_iter: int = 1000, w0: np.ndarray | None = None,
+              max_planes: int | None = None, solver: str = 'auto',
+              sync_every: 'int | str' = 8, qp_iters: int = 128,
+              memory_budget: float | None = None,
+              hybrid_prefix: int = DEFAULT_HYBRID_PREFIX,
+              callback: Callable | None = None) -> 'list[BMRMResult]':
+    """Sweep a regularization path over `lams`; one BMRMResult per lambda,
+    in `lams` order. The arguments are the reference's
+    (`repro.core.bmrm.bmrm_path`):
+
+      mode: 'vmap' (every lambda at once over a batched state; needs
+        `supports_path_vmap` and the device driver), 'sequential' (one
+        fit per lambda, each warm-started from the last: bundle state on
+        the device driver, w0 on the host driver), 'hybrid' (the first
+        `hybrid_prefix` lambdas sequentially, then the last prefix fit's
+        planes broadcast to a batched tail) or 'auto': vmap when the
+        oracle batches, the solver allows the device driver, eps is at or
+        above the float32 floor, the oracle is on the card (the CPU keeps
+        the sequential sweep) and the batched state fits `memory_budget`;
+        else sequential.
+      memory_budget: GiB the batched sweep may add (`path_state_gib`);
+        over it the sweep falls back to sequential with a RuntimeWarning,
+        under an explicit mode='vmap' too.
+      callback: forwarded to each sequential fit; the batched driver calls
+        it per read-back with (steps, W, J (L,), gaps (L,)).
+
+    The other arguments are `bmrm`'s, per lambda."""
+    _validate_path_mode(mode)
+    if solver not in SOLVERS:
+        # The vmap branch never reaches bmrm()'s own check.
+        raise ValueError(f'unknown solver {solver!r}; expected one of '
+                         f'{SOLVERS}')
+    if not hasattr(oracle, 'loss_and_subgrad'):
+        raise ValueError('bmrm_path needs a RankOracle (make_oracle); for '
+                         'bare callables run bmrm once per lambda')
+    lams = _validate_lams(lams)
+    dim = int(oracle.n)
+    batchable = bool(getattr(oracle, 'supports_path_vmap', False))
+
+    if mode in ('vmap', 'hybrid'):
+        if not batchable:
+            raise ValueError(
+                f"mode={mode!r} needs an oracle whose step batches over "
+                f'lambda (supports_path_vmap); {type(oracle).__name__} '
+                'does not: the streaming oracle passes over its row blocks '
+                "with one iterate. Use mode='sequential' (or 'auto')")
+        if solver == 'host':
+            raise ValueError(f"mode={mode!r} runs the device driver; it "
+                             "cannot run under solver='host': pass "
+                             "solver='auto'/'device' or mode='sequential'")
+        if eps < F32_EPS_FLOOR:
+            warnings.warn(
+                f'eps={eps:g} is below the f32 noise floor of the batched '
+                'bundle state; per-lambda gaps may stall above it and the '
+                'lockstep sweep would then spin to max_iter: use '
+                f"mode='sequential' for eps < {F32_EPS_FLOOR:g}",
+                RuntimeWarning, stacklevel=2)
+    if mode == 'hybrid':
+        if not (isinstance(hybrid_prefix, (int, np.integer))
+                and not isinstance(hybrid_prefix, bool)
+                and int(hybrid_prefix) >= 1):
+            raise ValueError('hybrid_prefix must be a positive int; got '
+                             f'{hybrid_prefix!r}')
+
+    def _over_budget(n_batched: int) -> bool:
+        if memory_budget is None:
+            return False
+        projected = path_state_gib(n_batched, dim, max_planes,
+                                   m=int(getattr(oracle, 'm', 0)))
+        if projected > float(memory_budget):
+            warnings.warn(
+                f'batched path sweep over {n_batched} lambdas projects '
+                f'~{projected:.3g} GiB of per-lambda bundle state + oracle '
+                f'working set (path_state_gib), over the '
+                f'{float(memory_budget):g} GiB memory_budget; falling '
+                'back to the sequential warm-started sweep. Raise the '
+                'budget, lower max_planes, or split the lambda grid to '
+                'batch it.', RuntimeWarning, stacklevel=3)
+            return True
+        return False
+
+    def _sequential(seq_lams, state=None, w_prev=None):
+        results = []
+        for lam in seq_lams:
+            t0 = time.perf_counter()
+            res = bmrm(oracle, lam=lam, eps=eps, max_iter=max_iter,
+                       w0=w_prev, max_planes=max_planes, callback=callback,
+                       solver=solver, sync_every=sync_every,
+                       qp_iters=qp_iters, state=state)
+            res.stats.seconds = time.perf_counter() - t0
+            state = res.state        # None on the host driver
+            w_prev = res.w
+            results.append(res)
+        return results
+
+    def _vmap(vlams, w_start, seed):
+        return _bmrm_path_vmap(oracle, vlams, dim=dim, eps=eps,
+                               max_iter=max_iter, w0=w_start,
+                               max_planes=max_planes,
+                               sync_every=sync_every, qp_iters=qp_iters,
+                               callback=callback, init_state=seed)
+
+    if mode == 'hybrid':
+        prefix = min(int(hybrid_prefix), len(lams))
+        head = _sequential(lams[:prefix], w_prev=w0)
+        tail_lams = lams[prefix:]
+        if not tail_lams:
+            return head
+        seed = head[-1].state
+        if seed is None or _over_budget(len(tail_lams)):
+            # No bundle state when the prefix ran on the host driver:
+            # finish sequentially-warm.
+            if seed is None:
+                warnings.warn(
+                    "mode='hybrid': the sequential prefix ran on the host "
+                    'driver (no bundle state to broadcast); finishing '
+                    'the sweep sequentially', RuntimeWarning, stacklevel=2)
+            return head + _sequential(tail_lams, state=seed,
+                                      w_prev=head[-1].w)
+        return head + _vmap(tail_lams, None, seed)
+
+    use_vmap = mode == 'vmap' or (
+        mode == 'auto' and batchable and solver != 'host'
+        and getattr(oracle, 'prefer_device_solver', True)
+        and eps >= F32_EPS_FLOOR and not _path_on_cpu(oracle))
+    if use_vmap and _over_budget(len(lams)):
+        use_vmap = False
+    if use_vmap:
+        return _vmap(lams, w0, None)
+    return _sequential(lams, w_prev=w0)

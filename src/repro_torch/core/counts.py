@@ -277,8 +277,11 @@ def _group_offsets(p, y, g):
 
 
 def _offset_scores(p, g):
-    """The score half of `_group_offsets`, made on every counting call."""
-    return p + g.to(p.dtype) * ((p.max() - p.min()) + 2.5)
+    """The score half of `_group_offsets`, made on every counting call;
+    each row of a batch of scores (L, m) gets the offsets of its own
+    range, as a call on that row alone would."""
+    span = p.amax(dim=-1, keepdim=True) - p.amin(dim=-1, keepdim=True)
+    return p + g.to(p.dtype) * (span + 2.5)
 
 
 def _offset_utilities(y, g):
@@ -464,6 +467,30 @@ def _validate_engine(engine: str) -> None:
                          f'expected one of {ENGINES}')
 
 
+def by_row(count, p):
+    """count(p) for one score vector; for a batch of scores (L, m) the
+    per-row results stacked along a leading axis, row i bit-equal to
+    count(p[i]). The outputs are allocated once and filled row by row,
+    so one row's temporaries are alive at a time. The counterpart of the
+    reference's `sequential_vmap`: one call per lambda."""
+    if p.dim() == 1:
+        return count(p)
+    first = count(p[0])
+    single = torch.is_tensor(first)
+    first = (first,) if single else tuple(first)
+    out = tuple(torch.empty((p.shape[0],) + t.shape, dtype=t.dtype,
+                            device=t.device) for t in first)
+    for o, t in zip(out, first):
+        o[0] = t
+    del first
+    for i in range(1, p.shape[0]):
+        row = count(p[i])
+        for o, t in zip(out, (row,) if single else row):
+            o[i] = t
+        del row
+    return out[0] if single else out
+
+
 def make_counter(y, g, engine: str = 'tree', block: int = 2048, v=None):
     """`p -> (c, d)` for fixed utilities y (and group ids g, or None): the
     counting core every oracle shares, with the engine picked by `engine`.
@@ -477,11 +504,15 @@ def make_counter(y, g, engine: str = 'tree', block: int = 2048, v=None):
                  pairwise kernel up to KERNEL_MAX_M examples, the
                  rank-counts kernel above; off the card the tree
 
+    The counter also takes a batch of scores (L, m), one row per lambda
+    of a regularization path, and returns (L, m) counts, each row
+    bit-equal to the call on that row (`by_row`).
+
     Grouped counting applies the key-offset trick (`_group_offsets`): the
     utility keys are made here, the score keys on each call. What depends
     on y alone (the kernels' rank compression and level guard, with its
     read-back) is done here once, so an oracle that keeps its counter
-    pays it once per fit.
+    pays it once per fit, for every row of a batch.
 
     v (per-example float weights, or None) makes the counter weighted,
     for the position-weighted hinge: `p -> (c~, d)` with c~ the float32
@@ -492,29 +523,29 @@ def make_counter(y, g, engine: str = 'tree', block: int = 2048, v=None):
     _validate_engine(engine)
     if engine == 'blocked':
         block = _validate_block_rows(block, 'counts_dispatch block')
-    if engine == 'tree' or (v is not None and engine != 'blocked'):
-        if v is not None:
-            if g is None:
-                return lambda p: counts_weighted_fused(p, y, v)
-            yk = _offset_utilities(y, g)
-            return lambda p: counts_weighted_fused(
-                _offset_scores(_f32(p), g), yk, v)
-        if g is None:
-            return lambda p: counts_fused(p, y)
-        return lambda p: counts_grouped_fused(p, y, g)
     yk = _f32(y) if g is None else _offset_utilities(y, g)
-    if engine == 'auto':
+    if engine == 'auto' and v is None:
         from ..kernels.pairwise_rank import ops as _pr_ops
         count = _pr_ops.auto_counter(yk)
-    elif engine == 'pallas':
+    elif engine == 'pallas' and v is None:
         from ..kernels.rank_counts import ops as _rc_ops
         count = _rc_ops.rank_counter(yk)
-    elif v is not None:
-        def count(p):
-            return counts_blocked_weighted(p, yk, v, block=block)
     else:
+        if engine == 'blocked' and v is None:
+            def one(p):
+                return counts_blocked_host(p, yk, block=block)
+        elif engine == 'blocked':
+            def one(p):
+                return counts_blocked_weighted(p, yk, v, block=block)
+        elif v is None:
+            def one(p):
+                return counts_fused(p, yk)
+        else:           # the weighted tree, also for 'pallas' and 'auto'
+            def one(p):
+                return counts_weighted_fused(p, yk, v)
+
         def count(p):
-            return counts_blocked_host(p, yk, block=block)
+            return by_row(one, p)
     if g is None:
         return count
     return lambda p: count(_offset_scores(_f32(p), g))

@@ -138,12 +138,18 @@ class RankOracle:
         whose transpose-matvec runs on the host (the device driver would
         force it onto the device) and for streamed CSR sources (its step
         densifies a slab per block, the host passes stay sparse).
+      supports_path_vmap: True when `step_fn` also takes a batch of
+        iterates W (L, n) and returns (R_emp (L,), A (L, n)), so that
+        `bmrm_path(mode='vmap')` can step every lambda of a path at once.
+        True for the fused oracles; False for the streaming oracle, whose
+        passes over row blocks take one iterate.
     """
 
     name = 'abstract'
     device_resident = False
     supports_device_solver = False
     prefer_device_solver = False
+    supports_path_vmap = False
     loss = 'hinge'
     m: int
     n: int
@@ -312,7 +318,9 @@ class _ExactSum:
 
 
 class _DenseFeatures:
-    """Row-major dense X in float32 on the device; both matvecs are gemv."""
+    """Row-major dense X in float32 on the device; both matvecs are gemv,
+    and for a batch of iterates W (L, n) or coefficients V (L, m) one
+    product each (W X^T and V X)."""
 
     kind = 'dense'
     device_rmatvec = True
@@ -328,10 +336,10 @@ class _DenseFeatures:
         self.m, self.n = map(int, self.X.shape)
 
     def matvec(self, w):
-        return self.X @ w
+        return self.X @ w if w.dim() == 1 else w @ self.X.T
 
     def rmatvec(self, v):
-        return self.X.T @ v
+        return self.X.T @ v if v.dim() == 1 else v @ self.X
 
 
 class _CSRFeatures:
@@ -347,7 +355,8 @@ class _CSRFeatures:
     float scatter-add is not), or, with csr_rmatvec='host', through
     scipy's CSR loops over the host copy. 'auto' takes the host on a CPU
     device, as the reference takes it on its CPU backend, and the device
-    elsewhere."""
+    elsewhere. A batch of iterates or coefficients (L rows) runs the
+    exact products once per row."""
 
     kind = 'csr'
 
@@ -406,6 +415,8 @@ class _CSRFeatures:
             np.bincount(indices, absd, minlength=self.n), device=device)
 
     def matvec(self, w):
+        if w.dim() == 2:
+            return torch.stack([self.matvec(row) for row in w])
         n = self.n
         if self._uniform:
             out = torch.empty(self.m, dtype=f32, device=w.device)
@@ -420,6 +431,8 @@ class _CSRFeatures:
         return acc.result()
 
     def rmatvec(self, v):
+        if v.dim() == 2:
+            return torch.stack([self.rmatvec(row) for row in v])
         acc = _ExactSum(self._col_abs * v.abs().max(), self._replicas)
         if self._uniform:
             for r0, r1 in self._chunks:
@@ -509,9 +522,11 @@ def _loss_counter(y, g, engine: str, block: int, loss: str, v=None):
     """The counting pass of `loss` for fixed y (and g), made once per
     oracle: `p -> (c, d)` for the hinge, `p -> (c~, d)` for 'poshinge'
     (`counts.make_counter(v=)`), and `(p, inv_n) -> (loss, coeffs)` for
-    'toppush', for which `engine` is inert."""
+    'toppush', for which `engine` is inert. Each takes a batch of scores
+    (L, m) as well, row by row (`counts.by_row`)."""
     if loss == 'toppush':
-        return lambda p, inv_n: _toppush_loss_coeffs(p, y, g, inv_n)
+        return lambda p, inv_n: _counts.by_row(
+            lambda q: _toppush_loss_coeffs(q, y, g, inv_n), p)
     return _counts.make_counter(y, g, engine=engine, block=block, v=v)
 
 
@@ -523,19 +538,28 @@ def _loss_and_coeffs(p, count, inv_n, v=None, loss: str = 'hinge'):
       'poshinge'  c~ - v d, and sum (c~ - v d) p + c~ over W: Lemma 1 with
                   the c side weighted by the higher side's decay and the d
                   side by the example's own weight v
-      'toppush'   the one-pass running max (`_toppush_loss_coeffs`)"""
+      'toppush'   the one-pass running max (`_toppush_loss_coeffs`)
+
+    Scores (L, m), one row per lambda of a path, give (L,) losses and
+    (L, m) coefficients."""
     if loss == 'toppush':
         return count(p, inv_n)
     c, d = count(p)
+    # d, and c as an integer, go as soon as they are used: a batch of L
+    # rows holds L such vectors.
     if loss == 'poshinge':
         cd = c - v * d.to(f32)
-        return (cd * p + c).sum() * inv_n, cd
+        del d
+        return (cd * p + c).sum(dim=-1) * inv_n, cd
     cd = (c - d).to(f32)
-    return (cd * p + c.to(f32)).sum() * inv_n, cd
+    del d
+    c = c.to(f32)
+    return (cd * p + c).sum(dim=-1) * inv_n, cd
 
 
 def _fused_step_impl(w, feats, count, inv_n, v=None, loss: str = 'hinge'):
-    """The fused step: matvec -> counts -> loss -> subgradient."""
+    """The fused step: matvec -> counts -> loss -> subgradient, for one
+    iterate w (n,) or a batch W (L, n)."""
     p = feats.matvec(w)
     loss_val, cd = _loss_and_coeffs(p, count, inv_n, v, loss)
     del p
@@ -550,6 +574,7 @@ class _FusedOracle(RankOracle):
 
     device_resident = True
     supports_device_solver = True
+    supports_path_vmap = True
     _engine = 'tree'
     _block = 0          # only the blocked engine reads it
     _count = None       # the counter, made at the first step_fn
@@ -626,7 +651,10 @@ class _FusedOracle(RankOracle):
     def step_fn(self):
         """`w -> (loss, a)` on the device, for the BMRM drivers. It always
         finishes the transpose-matvec on the device: the device driver has
-        no host to hand c - d to."""
+        no host to hand c - d to. The batched path sweep passes W (L, n)
+        and gets (L,) losses and (L, n) subgradients: one product for the
+        scores (dense features), the counting pass row by row, one
+        product for the subgradients."""
         feats, count, inv_n = self._feats, self._counter(), self._inv_n_dev
         v, loss = self._pw, self.loss
 
@@ -810,6 +838,7 @@ place of c - d and N for 'poshinge' and 'toppush'.
     device_resident = False
     supports_device_solver = True
     prefer_device_solver = True
+    supports_path_vmap = False   # its passes take one iterate at a time
 
     def __init__(self, X, y, groups=None, block_rows: int | None = None,
                  memory_budget: float | None = None, engine: str = 'auto',

@@ -79,22 +79,33 @@ def solve_bundle_dual(G: np.ndarray, b: np.ndarray, lam: float,
     return a_best, -f_best
 
 
+def _mv(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """M @ x over the last two axes of M: a matrix-vector product for one
+    problem, a batched one for a leading lambda axis."""
+    return M @ x if M.dim() == 2 else (M @ x.unsqueeze(-1)).squeeze(-1)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The dot product over the last axis, per problem."""
+    return a @ b if a.dim() == 1 else (a * b).sum(dim=-1)
+
+
 def project_simplex_masked(v: torch.Tensor,
                            mask: torch.Tensor) -> torch.Tensor:
     """Projection onto {x >= 0, sum x = 1, x[~mask] = 0} over a
-    fixed-capacity vector: inactive slots go to -inf before the sort.
-    Requires at least one True in `mask`. No host synchronisation."""
-    k = v.shape[0]
+    fixed-capacity vector, or over the last axis of a batch of them:
+    inactive slots go to -inf before the sort. Requires at least one True
+    in every mask. No host synchronisation."""
+    k = v.shape[-1]
     vm = torch.where(mask, v, torch.full_like(v, float('-inf')))
-    u = torch.sort(vm, descending=True).values
+    u = torch.sort(vm, dim=-1, descending=True).values
     fin = torch.isfinite(u)
-    css = torch.cumsum(torch.where(fin, u, torch.zeros_like(u)), 0) - 1.0
+    css = torch.cumsum(torch.where(fin, u, torch.zeros_like(u)), -1) - 1.0
     j = torch.arange(1, k + 1, device=v.device)
     cond = fin & (u * j.to(v.dtype) > css)
-    rho = torch.where(cond, j, torch.ones_like(j)).max()
-    # index_select, not css[rho - 1]: a 0-d index would be read back to
-    # the host.
-    theta = css.index_select(0, (rho - 1).view(1))[0] / rho.to(v.dtype)
+    rho = torch.where(cond, j, torch.ones_like(j)).amax(dim=-1, keepdim=True)
+    # gather, not css[rho - 1]: a 0-d index would be read back to the host.
+    theta = css.gather(-1, rho - 1) / rho.to(v.dtype)
     return torch.where(mask, torch.clamp(v - theta, min=0.0),
                        torch.zeros_like(v))
 
@@ -111,32 +122,45 @@ def solve_bundle_dual_torch(G: torch.Tensor, b: torch.Tensor, lam,
     outside `mask`. The Lipschitz constant comes from 12 power iterations
     padded by 10% and clamped to the Gershgorin bound; FISTA being
     non-monotone, the best iterate is returned. The counterpart of
-    `repro.core.qp.solve_bundle_dual_jax`."""
+    `repro.core.qp.solve_bundle_dual_jax`.
+
+    Batched: G (L, K, K), b, mask and alpha0 (L, K) and lam (L,) solve L
+    independent problems with one set of launches, the counterpart of
+    the reference's `jax.vmap` of the masked FISTA in its path sweep
+    (each tensor operation below takes the lambda axis along, so no
+    launch is repeated per lambda). Each problem's result equals its
+    unbatched solve up to float32 reassociation in the products; the
+    dual value comes back as (L,)."""
     dt = G.dtype
     lam = torch.as_tensor(lam, dtype=dt, device=G.device)
+    lam_v = lam[..., None]          # broadcasts against the plane axis
     mask_f = mask.to(dt)
-    Gm = G * mask_f[:, None] * mask_f[None, :]
+    Gm = G * mask_f[..., :, None] * mask_f[..., None, :]
     bm = torch.where(mask, b, torch.zeros_like(b)).to(dt)
-    gersh = Gm.abs().sum(dim=1).max()
-    v = mask_f / torch.clamp(torch.linalg.vector_norm(mask_f), min=1e-30)
+    gersh = Gm.abs().sum(dim=-1).amax(dim=-1)
+    v = mask_f / torch.clamp(torch.linalg.vector_norm(
+        mask_f, dim=-1, keepdim=True), min=1e-30)
     for _ in range(12):
-        u = Gm @ v
-        v = u / torch.clamp(torch.linalg.vector_norm(u), min=1e-30)
-    lmax = torch.minimum(1.1 * (v @ (Gm @ v)), gersh)
-    L = torch.clamp(lmax / (2.0 * lam), min=1e-12)
+        u = _mv(Gm, v)
+        v = u / torch.clamp(torch.linalg.vector_norm(u, dim=-1,
+                                                     keepdim=True),
+                            min=1e-30)
+    lmax = torch.minimum(1.1 * _dot(v, _mv(Gm, v)), gersh)
+    L = torch.clamp(lmax / (2.0 * lam), min=1e-12)[..., None]
 
     def grad(a):
-        return (Gm @ a) / (2.0 * lam) - bm
+        return _mv(Gm, a) / (2.0 * lam_v) - bm
 
     def fval(a):
-        return a @ (Gm @ a) / (4.0 * lam) - bm @ a
+        return _dot(a, _mv(Gm, a)) / (4.0 * lam) - _dot(bm, a)
 
     alpha = project_simplex_masked(
         torch.zeros_like(bm) if alpha0 is None else alpha0, mask)
     z = alpha
     a_best, f_best = alpha, fval(alpha)
     # The momentum schedule does not depend on the data: kept on the host
-    # in float32, as the reference keeps it in a float32 scalar.
+    # in float32, as the reference keeps it in a float32 scalar, and the
+    # same for every problem of a batch.
     tk = np.float32(1.0)
     for _ in range(n_iter):
         alpha_new = project_simplex_masked(z - grad(z) / L, mask)
@@ -147,6 +171,6 @@ def solve_bundle_dual_torch(G: torch.Tensor, b: torch.Tensor, lam,
         alpha, tk = alpha_new, tk_new
         f_new = fval(alpha_new)
         better = f_new < f_best
-        a_best = torch.where(better, alpha_new, a_best)
+        a_best = torch.where(better[..., None], alpha_new, a_best)
         f_best = torch.where(better, f_new, f_best)
     return a_best, -f_best

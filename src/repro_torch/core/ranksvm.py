@@ -8,11 +8,13 @@ ported: dense and CSR features, streamed features, the losses 'hinge'
 counting engine and `solver=` the BMRM driver (`core.bmrm`); the
 estimator itself touches no counting internals. The model trains on
 `device` (default 'cuda'); without a card that raises unless
-device='cpu' is given.
+device='cpu' is given. `path` sweeps a regularization path
+(`core.bmrm.bmrm_path`), and `scorer`/`scores`/`top_k` serve the fitted
+weights through `repro_torch.serve`.
 
-method='sharded', the regularization path and incremental refits are
-not ported yet and raise NotImplementedError naming their ROADMAP.md
-item. `incremental_` stays None.
+method='sharded' and incremental refits are not ported yet and raise
+NotImplementedError naming their ROADMAP.md item. `incremental_` stays
+None.
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ import torch
 
 from ..kernels.platform import full_f32, resolve_device
 from . import rank_loss as _rank_loss
-from .bmrm import SOLVERS, bmrm
+from .bmrm import (DEFAULT_HYBRID_PREFIX, SOLVERS, _validate_lams,
+                   _validate_path_mode, bmrm, bmrm_path)
+from ..data import rowblocks as _rowblocks
 from ..data.rowblocks import _validate_prefetch
 from .counts import _validate_block_rows, _validate_engine
 from .oracle import (METHODS, _as_numpy, _validate_loss, empirical_risk,
@@ -42,6 +46,14 @@ class FitReport:
     oracle_seconds_mean: float
     loss_history: list
     solver: str = 'host'
+
+
+@dataclasses.dataclass
+class PathPoint:
+    """One lambda of a regularization-path sweep (`RankSVM.path`)."""
+    lam: float
+    w: np.ndarray
+    report: FitReport
 
 
 class RankSVM:
@@ -133,12 +145,7 @@ class RankSVM:
         used in place), CSR (`data.sparse.CSRMatrix`, scipy, a torch
         sparse tensor), an np.memmap or a `data.rowblocks` row-block
         source; y is numpy or torch."""
-        oracle = make_oracle(X, y, groups=groups, method=self.method,
-                             loss=self.loss, engine=self.engine,
-                             pair_block=self.pair_block,
-                             memory_budget=self.memory_budget,
-                             stream_block=self.stream_block,
-                             prefetch=self.prefetch, device=self.device)
+        oracle = self._make_oracle(X, y, groups)
         self.oracle_ = oracle
         t0 = time.perf_counter()
         res = self._solve(oracle)
@@ -147,9 +154,47 @@ class RankSVM:
         self.report_ = self._report(res, dt)
         return self
 
-    def path(self, *args, **kwargs):
-        raise NotImplementedError('the regularization path is not ported '
-                                  'yet: ROADMAP.md Queue 1 item 8')
+    def path(self, X, y, lams, groups=None, mode: str = 'auto',
+             hybrid_prefix: int | None = None) -> list[PathPoint]:
+        """Fit a regularization path over `lams`; one PathPoint per lambda.
+
+        `lams` in any order, duplicates allowed, each finite and > 0.
+        `mode` is 'vmap' (every lambda at once over a batched bundle
+        state, trading K plane buffers of max_planes x n floats,
+        `core.bmrm.path_state_gib`, for one batched step per iteration),
+        'sequential' (one warm-started fit per lambda), 'hybrid'
+        (`hybrid_prefix` sequential fits, default
+        `core.bmrm.DEFAULT_HYBRID_PREFIX` = 2, then a batched tail from the
+        last one's planes) or 'auto' (vmap on the card for the fused
+        oracles within `memory_budget`, sequential on the CPU and for
+        the streaming oracle): `core.bmrm.bmrm_path`.
+
+        The mode and the lambdas are checked before the oracle is built.
+        Leaves the estimator fitted at the LAST lambda of `lams`. In vmap
+        mode each report's `seconds` is the lambda's share of the joint
+        sweep. `incremental_` stays None: refits are ROADMAP.md Queue 1
+        item 11."""
+        _validate_path_mode(mode)
+        lams = _validate_lams(lams)
+        oracle = self._make_oracle(X, y, groups)
+        self.oracle_ = oracle
+        results = bmrm_path(
+            oracle, lams, mode=mode, eps=self.eps, max_iter=self.max_iter,
+            max_planes=self.max_planes, solver=self.solver,
+            sync_every=self.sync_every, qp_iters=self.qp_iters,
+            memory_budget=self.memory_budget,
+            hybrid_prefix=(DEFAULT_HYBRID_PREFIX if hybrid_prefix is None
+                           else int(hybrid_prefix)),
+            callback=(lambda t, w, j, g:
+                      print(f'  bmrm it={t} J_best={np.asarray(j)} '
+                            f'gap={np.asarray(g)}'))
+            if self.verbose else None)
+        points = [PathPoint(lam=lam, w=res.w,
+                            report=self._report(res, res.stats.seconds))
+                  for lam, res in zip(lams, results)]
+        last = points[-1]
+        self.w_, self.report_, self.lam = last.w, last.report, last.lam
+        return points
 
     def refit(self, *args, **kwargs):
         raise NotImplementedError('incremental refits are not ported yet: '
@@ -173,6 +218,41 @@ class RankSVM:
     def predict(self, X) -> np.ndarray:
         return self.decision_function(X)
 
+    def scorer(self, **kwargs):
+        """A `repro_torch.serve.Scorer` over the fitted weights on this
+        estimator's device. Kwargs pass to its constructor (`min_bucket`,
+        `donate`). Cached per fitted weight vector when called without
+        kwargs; a new fit makes a new one."""
+        if self.w_ is None:
+            raise RuntimeError('fit() first')
+        from ..serve import Scorer
+        if kwargs:
+            return Scorer(self.w_, device=self.device, **kwargs)
+        cached = getattr(self, '_scorer_cache', None)
+        if cached is None or cached[0] is not self.w_:
+            self._scorer_cache = (self.w_, Scorer(self.w_,
+                                                  device=self.device))
+        return self._scorer_cache[1]
+
+    def scores(self, X) -> np.ndarray:
+        """Candidate scores X @ w in float32 through the serving scorer;
+        CSR inputs score through `decision_function` (the serving path
+        is dense)."""
+        if self.w_ is None:
+            raise RuntimeError('fit() first')
+        if _rowblocks.is_sparse_input(X) or hasattr(X, 'matvec'):
+            return self.decision_function(X)
+        return self.scorer().scores(_as_numpy(X, np.float32))
+
+    def top_k(self, X, k: int):
+        """The best k candidates by score: `(values, indices)`, ties
+        broken lowest index first, as ranking `self.scores(X)` by a stable
+        full argsort would; k past the candidate count returns all of
+        them, ranked (`repro_torch.serve.Scorer.top_k`)."""
+        if self.w_ is None:
+            raise RuntimeError('fit() first')
+        return self.scorer().top_k(_as_numpy(X, np.float32), k)
+
     def ranking_error(self, X, y, groups=None) -> float:
         """Pairwise ranking error (paper eq. 1) on held-out data."""
         dev = self.device
@@ -193,6 +273,14 @@ class RankSVM:
                 + self.lam * float(self.w_ @ self.w_))
 
     # -- internals ---------------------------------------------------------
+
+    def _make_oracle(self, X, y, groups):
+        return make_oracle(X, y, groups=groups, method=self.method,
+                           loss=self.loss, engine=self.engine,
+                           pair_block=self.pair_block,
+                           memory_budget=self.memory_budget,
+                           stream_block=self.stream_block,
+                           prefetch=self.prefetch, device=self.device)
 
     def _solve(self, oracle):
         return bmrm(oracle, lam=self.lam, eps=self.eps,

@@ -93,13 +93,14 @@ def auto_route(m: int, device) -> str:
 
 def auto_counter(y: torch.Tensor):
     """`p -> (c, d)` for the fixed utilities y, by the engine that
-    `auto_route` picks for y's length and device, chosen once."""
+    `auto_route` picks for y's length and device, chosen once. A batch of
+    scores (L, m) gives (L, m) counts, row by row."""
+    from ...core import counts as _tree
     route = auto_route(y.shape[0], y.device)
     if route == 'tree':
-        from ...core import counts as _tree
-        return lambda p: _tree.counts_fused(p, y)
+        return lambda p: _tree.by_row(lambda q: _tree.counts_fused(q, y), p)
     if route == 'pairwise':
-        return lambda p: pairwise_counts(p, y)
+        return lambda p: _tree.by_row(lambda q: pairwise_counts(q, y), p)
     return _rc_ops.rank_counter(y)
 
 

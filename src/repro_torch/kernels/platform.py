@@ -12,6 +12,7 @@ with no card and no such request it raises instead of carrying on slowly.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -50,20 +51,34 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# full_f32's process-wide state: how many callers are inside it, and the
+# precision to restore when the last one leaves.
+_F32_LOCK = threading.Lock()
+_F32_USERS = [0, None]
+
+
 @contextlib.contextmanager
 def full_f32():
     """Run the enclosed code with float32 matrix products in full float32.
 
     TF32 keeps about three decimal digits, which would round the score
-    matvec p = Xw and move examples across the hinge margin. The
-    precision 'highest' is what turns TF32 off for matmuls
-    (`torch.backends.cuda.matmul.allow_tf32` follows it); the port runs
-    no convolution, so cuDNN's own flag is left alone. The setting is
-    process-wide, so it is made on entry and restored on exit, never at
-    import."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision('highest')
+    matvec p = Xw and move examples across the hinge margin, or reorder
+    a served ranking. The precision 'highest' is what turns TF32 off for
+    matmuls (`torch.backends.cuda.matmul.allow_tf32` follows it); the
+    port runs no convolution, so cuDNN's own flag is left alone. The
+    setting is process-wide, so it is made on entry and restored on exit,
+    never at import. Threads share it (the serving layer scores from
+    several): the first caller in sets it and the last one out restores
+    it, under a lock, so no caller ever runs with it restored early."""
+    with _F32_LOCK:
+        if _F32_USERS[0] == 0:
+            _F32_USERS[1] = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision('highest')
+        _F32_USERS[0] += 1
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        with _F32_LOCK:
+            _F32_USERS[0] -= 1
+            if _F32_USERS[0] == 0:
+                torch.set_float32_matmul_precision(_F32_USERS[1])

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.counts import _f32, _group_offsets, counts_fused
+from ...core.counts import _f32, _group_offsets, by_row, counts_fused
 from .. import _build
 from .ref import rank_bits, rank_counts_plain
 
@@ -132,7 +132,8 @@ def counts_from_sort(ps, order, ranks, n_ranks: int, ti: int = TI,
 def rank_counter(y: torch.Tensor, ti: int = TI, tj: int | None = None,
                  levels: int = DEFAULT_LEVELS):
     """`p -> (c, d)` for the fixed utilities y, bit-identical to
-    `ref.counts_ref(p, y)`.
+    `ref.counts_ref(p, y)`; p may also be a batch of scores (L, m), which
+    gives (L, m) counts, row i bit-equal to the call on p[i].
 
     y is cast to float32 as in the reference, ranked and checked against
     `levels` here, once; an oracle builds its counter when it is made,
@@ -153,19 +154,26 @@ def rank_counter(y: torch.Tensor, ti: int = TI, tj: int | None = None,
     tj = pick_tj(n_ranks) if tj is None else tj
     _check_tiles(m, ti, tj)
 
-    def count(p: torch.Tensor):
-        if p.shape != y.shape:
-            raise ValueError(f'p and y must be 1-D of one length; got '
-                             f'{tuple(p.shape)} and {tuple(y.shape)}')
-        p = _f32(p).contiguous()
-        if m == 0:
-            z = torch.zeros((0,), dtype=torch.int32, device=p.device)
-            return z, z.clone()
+    def count_one(p: torch.Tensor):
         if guarded:
             return counts_fused(p, y)
         ps, order = torch.sort(p, stable=True)
         c, d, _ = counts_from_sort(ps, order, ranks, n_ranks, ti, tj)
         return c, d
+
+    def count(p: torch.Tensor):
+        if p.shape[-1:] != y.shape or p.dim() > 2:
+            raise ValueError(f'p must be ({m},) or (L, {m}) for {m} '
+                             f'utilities; got {tuple(p.shape)}')
+        p = _f32(p).contiguous()
+        if m == 0:
+            z = torch.zeros(p.shape, dtype=torch.int32, device=p.device)
+            return z, z.clone()
+        # A batch of L score rows (a regularization path) goes row by
+        # row, as the reference's sequential_vmap does: one sort and one
+        # launcher call per row, written into the (L, m) outputs, so one
+        # row's sort and scratch are alive at a time.
+        return by_row(count_one, p)
 
     return count
 

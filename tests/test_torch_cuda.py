@@ -806,3 +806,123 @@ def test_train_step_on_the_card_matches_the_cpu(objective, cuda_device):
     cpu, card = metrics['cpu'], metrics[str(cuda_device)]
     assert abs(card['loss'] - cpu['loss']) <= 2e-3 * abs(cpu['loss'])
     assert abs(card['gnorm'] - cpu['gnorm']) <= 2e-2 * cpu['gnorm']
+
+
+# -- the regularization path and serving (slice 8) ----------------------------
+
+
+def _path_problem(dev, m=20000, n=16, seed=9):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(m, n)).astype(np.float32)
+    y = np.clip(np.round(X @ rng.normal(size=n) / 3 + 1.5), 0, 4)
+    return (torch.as_tensor(X, device=dev),
+            torch.as_tensor(y.astype(np.float32), device=dev))
+
+
+@pytest.mark.parametrize('engine,loss', [
+    ('pallas', 'hinge'), ('auto', 'hinge'), ('tree', 'hinge'),
+    ('pallas', 'poshinge'), ('tree', 'toppush')])
+@pytest.mark.parametrize('m', [3000, 20000])
+def test_batched_counter_on_the_card_equals_single_calls(engine, loss, m,
+                                                         cuda_device):
+    """Scores (L, m) through the batched counter on the card: every row
+    bit-equal to the single call (m = 3000 takes the pairwise kernel
+    under 'auto', m = 20000 the rank-counts kernel)."""
+    from repro_torch.core import oracle as TO
+    rng = np.random.default_rng(m)
+    y = rng.integers(0, 5, size=m).astype(np.float32)
+    P = (rng.integers(-40, 41, size=(3, m)) * 0.25).astype(np.float32)
+    P[2] = P[0]
+    norm, pw = TO._loss_norm_weights(y, None, loss)
+    v = None if pw is None else torch.as_tensor(pw, dtype=torch.float32,
+                                                device=cuda_device)
+    count = TO._loss_counter(torch.as_tensor(y, device=cuda_device), None,
+                             engine, 2048, loss, v)
+    args = ((torch.tensor(1.0 / norm, device=cuda_device),)
+            if loss == 'toppush' else ())
+    Pd = torch.as_tensor(P, device=cuda_device)
+    batched = count(Pd, *args)
+    for i in range(3):
+        single = count(Pd[i], *args)
+        assert all(torch.equal(b[i], s) for b, s in zip(batched, single))
+    if loss == 'hinge':
+        cf, df = TC.counts_fused(Pd[1], torch.as_tensor(y, device=cuda_device))
+        assert torch.equal(batched[0][1], cf) and torch.equal(batched[1][1],
+                                                              df)
+
+
+def test_batched_kernel_step_makes_no_host_read_back(cuda_device):
+    """One batched bundle step of the path sweep through the rank-counts
+    kernel (three lambdas) neither synchronizes nor reads back."""
+    from repro_torch.core import bmrm as TB
+    from repro_torch.core.oracle import make_oracle
+    from repro_torch.kernels.platform import full_f32
+    X, y = _path_problem(cuda_device)
+    orc = make_oracle(X, y, engine='pallas', device=cuda_device)
+    state = TB.init_path_state(orc.n, 16, 3, device=cuda_device)
+    lams = torch.tensor([1e-1, 1e-2, 1e-3], device=cuda_device)
+    eps = torch.tensor(1e-3, device=cuda_device)
+    step = orc.step_fn()
+    RC.RANK_COUNTS.launches = 0
+    with full_f32():
+        state, _ = TB._bundle_step(state, step, lams, eps, 32)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            state, r = TB._bundle_step(state, step, lams, eps, 32)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    assert RC.RANK_COUNTS.launches == 6
+    assert r.shape == (3,) and bool(torch.isfinite(r).all())
+    assert state.n_active.tolist() == [2, 2, 2]
+
+
+def test_path_vmap_matches_sequential_on_the_card(cuda_device):
+    """The batched sweep on the card through the rank-counts kernel: every
+    lambda converged, J within eps of the sequential sweep's."""
+    X, y = _path_problem(cuda_device)
+    lams = [1e-1, 1e-2, 1e-3]
+    svm = RankSVM(eps=1e-3, engine='pallas', max_iter=300,
+                  device=cuda_device)
+    RC.RANK_COUNTS.launches = 0
+    pv = svm.path(X, y, lams, mode='vmap')
+    assert RC.RANK_COUNTS.launches >= 3 * max(p.report.iterations
+                                              for p in pv)
+    ps = svm.path(X, y, lams, mode='sequential')
+    ph = svm.path(X, y, lams, mode='hybrid')
+    for a, b, c in zip(pv, ps, ph):
+        assert a.report.converged and b.report.converged
+        assert c.report.converged
+        assert [a.report.solver, b.report.solver] == ['vmap', 'device']
+        ja, jb, jc = (RankSVM(lam=p.lam, device=cuda_device)
+                      for p in (a, b, c))
+        for est, p in ((ja, a), (jb, b), (jc, c)):
+            est.w_ = p.w
+        jb_ = jb.objective(X, y)
+        assert abs(ja.objective(X, y) - jb_) <= 1e-3
+        assert abs(jc.objective(X, y) - jb_) <= 1e-3
+
+
+def test_top_k_tie_rule_on_the_card(cuda_device):
+    """Ties go lowest index first on the card: repeated rows, all-equal
+    scores, and padded buckets, against the stable argsort of the card's
+    own scores, bit for bit; the batched launch agrees."""
+    from repro_torch.serve import Scorer
+    rng = np.random.default_rng(3)
+    w = (rng.integers(-8, 9, size=8) * 0.25).astype(np.float32)
+    sc = Scorer(w, device=cuda_device)
+    for X in (np.repeat((rng.integers(-4, 5, size=(40, 8)) * 0.5).astype(
+                  np.float32), 25, axis=0),                  # 1000 rows
+              np.ones((300, 8), np.float32),
+              (rng.integers(-1, 2, size=(4000, 8))).astype(np.float32)):
+        s = sc.scores(X)
+        for k in (1, 10, 100, len(X)):
+            v, i = sc.top_k(X, k)
+            ref = np.argsort(-s, kind='stable')[:k]
+            np.testing.assert_array_equal(i, ref)
+            np.testing.assert_array_equal(v, s[ref])
+        _, bs, bv, bi = sc.score_batch([(X, len(X), 10), (X[:7], 7, 3)])
+        np.testing.assert_array_equal(bi[0, :10],
+                                      np.argsort(-bs[0, :len(X)],
+                                                 kind='stable')[:10])
+        np.testing.assert_array_equal(bs[0, :len(X)], s)

@@ -143,8 +143,11 @@ def test_sync_every_auto_and_unported_entry_points():
     svm = RankSVM(eps=1e-3, sync_every='auto', solver='device',
                   device='cpu').fit(data.X, data.y)
     assert svm.report_.converged and svm.incremental_ is None
-    with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
-        svm.path(data.X, data.y, [1e-3])
+    # the regularization path is ported (tests/test_torch_path.py): a
+    # one-lambda path is a fit at that lambda
+    (point,) = svm.path(data.X, data.y, [1e-3], mode='sequential')
+    assert point.lam == 1e-3 and point.report.converged
+    assert svm.incremental_ is None
     with pytest.raises(NotImplementedError, match='Queue 1 item 11'):
         svm.refit(data.X, data.y)
     with pytest.raises(ValueError, match='unknown solver'):
@@ -176,7 +179,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             'repro_torch.data.tokens, repro_torch.launch.train, '
             'repro_torch.core.rank_loss, repro_torch.core.oracle, '
             'repro_torch.data.sparse, repro_torch.data.rowblocks, '
-            'repro_torch.data.synthetic, repro_torch.core.joachims; '
+            'repro_torch.data.synthetic, repro_torch.core.joachims, '
+            'repro_torch.core.bmrm, repro_torch.serve, '
+            'repro_torch.serve.scorer, repro_torch.serve.batching; '
             "assert 'jax' not in sys.modules, 'the port pulled in jax'; "
             "assert 'repro' not in sys.modules, "
             "'the port pulled in the JAX package'")
