@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA H100: RankSVM training
 through the counting kernels, under each of its three losses, along a
-regularization path, and RankSVM serving; RWKV-6 serving through the WKV
-forward kernel, and RWKV-6 training through both WKV kernels.
+regularization path, incrementally retrained and resumed from
+checkpoints, and RankSVM serving; RWKV-6 serving through the WKV forward
+kernel, and RWKV-6 training through both WKV kernels.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -35,8 +36,10 @@ line; any failure ends the run with a non-zero exit code:
            m = 2^20 examples, five relevance grades, synthetic from
            --seed: `RankSVM(method='tree', engine='pallas').fit`, then
            engine='tree' on the same data. The rank-counts kernel must
-           have been launched in the first fit, and the two objectives
-           must agree within eps.
+           have been launched in the first fit, its oracle must hold the
+           caller's tensor (no copy of X), and the two objectives must
+           agree within eps. Prints the phase's peak memory above its
+           start.
 6. path    the regularization path on the main data: `RankSVM.path`
            over lambda = 1e-1, 1e-2, 1e-3 (eps 1e-3, max_iter 300,
            engine='pallas') in mode 'vmap' (every lambda at once over a
@@ -120,7 +123,42 @@ line; any failure ends the run with a non-zero exit code:
            (`core.joachims.counts_rlevel`) against the tree at m = 65536,
            r = 2 .. 2048 (`benchmarks/fig6_rlevels.py --full`): counts
            bit-equal, both times, and where they cross.
-14. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
+14. refit  incremental retraining on the main data in 8192 queries of
+           QUERY_ROWS rows: `RankSVM(lam=1e-3, eps=1e-3, method='tree',
+           engine='pallas', max_iter=300).fit`, then a block of 2^17 new
+           rows (1024 queries, ids 8192-9215) from the same generator
+           with every feature's mean shifted by 0.5 standard deviations,
+           graded at the base's edges (`mslr_drift`). First the grouped
+           'pallas' counter every solve here counts through (offset
+           scores into the rank-counts kernel, cross-query pairs
+           subtracted) against the grouped tree at the merged shape and
+           at the block's, at the main fit's w and at w_true: (c, d)
+           bit-equal, one launch a call. `refit(..., mode='ledger')`: the
+           rank-counts kernel launched at least once per revalidated
+           plane and once per iteration of the warm solve, converged, J
+           within eps of a cold fit of the merged data; the same append
+           under mode='w-only' on a second copy of the base, within eps
+           too. The hot swap: on two more copies, the ledger refit
+           (`weight_store=service`) and the w-only refit at eps SWAP_EPS,
+           below J(base w) - J(cold fit), so both must beat the base w:
+           the service's version up by one, top-k equal to the stable
+           argsort of the new scores, the scores changed and equal to a
+           fresh `Scorer`'s of the new w. On a fifth copy the block is
+           appended and retired again: the ledger's planes before the
+           warm solve equal the base ledger's bit for bit, mode 'ledger'.
+           `refit_chunk_step` over the merged oracle through
+           `runtime.run` (8 chunks of 4 steps, checkpoints every 2,
+           preempted at 5, resumed from 4): every field of the final
+           `BundleState` equal to the uninterrupted run's on the card;
+           the checkpoint's bytes, save and restore ms. The reduced
+           rwkv6-3b train step (WKV kernels) through `runtime.run` (6
+           steps, checkpoints every 2, preempted at 3): parameters
+           (bf16), master weights, AdamW moments and counts bit-identical.
+           Prints each fit's iterations, seconds and ms per iteration,
+           `revalidate_seconds`, `n_planes`, the kernel's launches in
+           revalidation and in the solves, and the phase's peak memory
+           above its start.
+15. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
            layers, d = 2560, 40 heads of 64, d_ff = 8960, vocab 65536),
            seeded random weights made on the card, wkv_impl='kernel':
            prefill of B = 8 prompts of T = 4096 tokens (a cut of the
@@ -134,7 +172,7 @@ line; any failure ends the run with a non-zero exit code:
            prefill tokens/s, decode ms per token, the kernel's ms per
            call, and profiler windows over a prefill and decode steps.
            It releases its model before the next phase.
-15. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
+16. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
            weights as in lm, wkv_impl='kernel', remat='layer', AdamW
            (f32 master, m, v): first the gradients at B = 1, T = 256, the
            kernel route against the scan route on the same weights, every
@@ -151,7 +189,7 @@ line; any failure ends the run with a non-zero exit code:
            kernels' share of its device time), and both WKV kernels' times
            at the training shape (N = 160; the forward writing
            boundaries).
-16. time   where an iteration's time goes at the main shapes (CUDA
+17. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
            bundle steps (device busy share, device operations per step).
@@ -207,6 +245,21 @@ QUERY_ROWS = 128
 RLEVEL_M, RLEVELS = 65536, (2, 8, 32, 128, 512, 2048)
 # The regularization path (path phase): the lambdas of the sweep.
 PATH_LAMS = (1e-1, 1e-2, 1e-3)
+# Incremental retraining (refit phase): rows of the appended block (1024
+# new queries of QUERY_ROWS), the drift of its features in standard
+# deviations, and the chunk loop's length, checkpoint period, steps per
+# chunk and preemption.
+DELTA_ROWS, DRIFT_SHIFT = 1 << 17, 0.5
+# The hot swap's refits (ledger, and w-only beside it) stop at SWAP_EPS,
+# below J(base w) - J(cold fit) on the merged data (3.17e-5 at seed 0),
+# so a converged solve must return a w better than the base's: the swap
+# then has to change what is served. Not below the f32 floor (1e-5).
+SWAP_EPS = 2e-5
+CHUNKS, CKPT_EVERY, CHUNK_STEPS, FAIL_AT = 8, 2, 4, 5
+# The reduced rwkv6-3b train step through the runtime loop: steps,
+# checkpoint period, preemption, batch and length.
+RESUME_STEPS, RESUME_CKPT, RESUME_FAIL, RESUME_BATCH, RESUME_LEN = (
+    6, 2, 3, 2, 64)
 # RankSVM serving (serve phase): requests of 8 .. 4096 candidates drawn
 # log-uniform (MSLR-WEB10K queries hold about 120), the top k, the
 # micro-batcher's clients and their requests, its launch cap, and the
@@ -276,10 +329,12 @@ def device_ms(torch, fn, name_part: str, reps: int) -> float:
           'kernel')
 
 
-def mslr_like(torch, m: int, seed: int, dev):
+def _mslr_draw(torch, m: int, seed: int, dev):
     """Dense MSLR-WEB10K-width data made on the card from `seed`: 136
     standardized features and five relevance grades cut from a noisy
-    linear utility at the GRADE_SHARES quantiles."""
+    linear utility at the GRADE_SHARES quantiles. Returns (X, y, w_true,
+    edges): the utility weights and the grade edges too, for the drifted
+    block of the refit phase."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     X = torch.randn(m, N_FEATURES, generator=g, device=dev)
@@ -289,6 +344,22 @@ def mslr_like(torch, m: int, seed: int, dev):
     cum = torch.tensor([sum(GRADE_SHARES[:k + 1]) for k in range(4)],
                        device=dev)
     edges = torch.sort(raw).values[(cum * (m - 1)).long()]
+    y = torch.bucketize(raw, edges, right=True).to(torch.float32)
+    return X, y, w_true, edges
+
+
+def mslr_drift(torch, w_true, edges, m_delta: int, seed: int, dev):
+    """A block of `m_delta` new rows for the main data: drawn as
+    `_mslr_draw` draws its rows, from a generator of its own, with every
+    feature's mean shifted by DRIFT_SHIFT standard deviations (as
+    `cadata_drift` shifts Cadata's); utilities from the base's w_true,
+    graded at the BASE's edges, so that the drift changes the block's
+    grade mix."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed * 1000003 + 0xD41F)
+    X = torch.randn(m_delta, N_FEATURES, generator=g, device=dev)
+    X += DRIFT_SHIFT
+    raw = X @ w_true + 0.5 * torch.randn(m_delta, generator=g, device=dev)
     y = torch.bucketize(raw, edges, right=True).to(torch.float32)
     return X, y
 
@@ -510,12 +581,20 @@ def _counts():
 
 def phase_main(ctx):
     torch = ctx['torch']
-    X, y = mslr_like(torch, M, ctx['seed'], ctx['dev'])
+    X, y, ctx['w_true'], ctx['edges'] = _mslr_draw(torch, M, ctx['seed'],
+                                                   ctx['dev'])
     ctx['X'], ctx['y'] = X, y
     kw = dict(lam=LAM, eps=EPS, method='tree', max_iter=MAX_ITER)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     svm_k, rep_k = _fit(ctx, X, y, engine='pallas', **kw)
     launches = _counts()
+    # the fit's store and oracle hold the caller's tensor, not a copy
+    check(svm_k.oracle_._feats.X.data_ptr() == X.data_ptr()
+          and svm_k.incremental_.store.materialize() is X,
+          'the main fit copied its features')
     check(launches['rank_counts'] >= rep_k.iterations,
           f'rank-counts kernel launched {launches["rank_counts"]} times in '
           f'{rep_k.iterations} iterations of the main path')
@@ -531,7 +610,10 @@ def phase_main(ctx):
           f'objectives differ: pallas {j_k} vs tree {j_t}')
     ctx['objective_main'] = j_k
     res = dict(m=M, n=N_FEATURES, grades=len(GRADE_SHARES),
-               launches=launches, objective_pallas=j_k, objective_tree=j_t)
+               launches=launches, objective_pallas=j_k, objective_tree=j_t,
+               features_copied=False,
+               peak_memory_above_start=(torch.cuda.max_memory_allocated()
+                                        - start))
     for name, rep in (('pallas', rep_k), ('tree', rep_t)):
         res[name] = dict(iterations=rep.iterations, converged=rep.converged,
                          gap=rep.gap, solver=rep.solver, seconds=rep.seconds,
@@ -1286,6 +1368,395 @@ def phase_losses(ctx):
     return res
 
 
+def _fit_row(rep, seconds=None):
+    secs = rep.seconds if seconds is None else seconds
+    return dict(iterations=rep.iterations, converged=rep.converged,
+                objective=rep.objective, gap=rep.gap, solver=rep.solver,
+                seconds=secs, ms_per_iteration=1e3 * secs / rep.iterations)
+
+
+def _objective_on(ctx, w, X, y, g):
+    """J(w) on (X, y, g) at lambda LAM, as `RankSVM.objective` takes it."""
+    from repro_torch.core.ranksvm import RankSVM
+    svm = RankSVM(lam=LAM, device=ctx['dev'])
+    svm.w_ = w
+    return svm.objective(X, y, g)
+
+
+def _twin(svm):
+    """A second copy of a fitted estimator for another refit: a store of
+    its own over the same training tensors (no copy) and the same fitted
+    bundle state, which no solve updates in place."""
+    import copy
+    from repro_torch.core.incremental import IncrementalFit
+    from repro_torch.data import BlockStore
+    inc = svm.incremental_
+    twin = copy.copy(svm)
+    store = BlockStore()
+    for bid in inc.store.block_ids:
+        mem = inc.store.member(bid)
+        store.append(mem.source.tensor, mem.y, mem.groups)
+    twin.incremental_ = IncrementalFit(store, inc.state,
+                                       svm._ledger_norm(svm.oracle_),
+                                       partials_fn=twin._partials_fn())
+    return twin
+
+
+def _count_revalidation(inc, tally):
+    """Wrap an `IncrementalFit`'s revalidation hook so that the
+    rank-counts launches it makes add to tally['revalidate']."""
+    from repro_torch.kernels.rank_counts import ops as RC
+    inner = inc._partials_fn
+
+    def counted(*args):
+        before = RC.RANK_COUNTS.launches
+        out = inner(*args)
+        tally['revalidate'] += RC.RANK_COUNTS.launches - before
+        return out
+
+    inc._partials_fn = counted
+
+
+def _chunk_resume(ctx, oracle, root):
+    """`refit_chunk_step` over `oracle` through `runtime.run`: CHUNKS
+    chunks uninterrupted, then preempted at FAIL_AT and resumed from the
+    checkpoint of chunk CKPT_EVERY * (FAIL_AT // CKPT_EVERY); the two
+    final `BundleState`s must be equal bit for bit on the card."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core.bmrm import BundleState, init_bundle_state
+    from repro_torch.core.incremental import refit_chunk_step
+    from repro_torch.runtime import LoopConfig, SimulatedPreemption, run
+    step = refit_chunk_step(oracle, lam=LAM, eps=EPS,
+                            sync_every=CHUNK_STEPS)
+
+    def init_fn(device):
+        return init_bundle_state(oracle.n, 64, device=device)
+
+    def loop(name, **kw):
+        lc = LoopConfig(total_steps=CHUNKS,
+                        ckpt_dir=os.path.join(root, name),
+                        ckpt_every=CKPT_EVERY, async_ckpt=True)
+        return run(step, init_fn, lambda s: None, lc, device=dev, **kw)
+
+    t0 = time.perf_counter()
+    state_a, rep_a = loop('a')
+    torch.cuda.synchronize()
+    secs_a = time.perf_counter() - t0
+    try:
+        loop('b', fail_at=FAIL_AT)
+        check(False, 'the injected preemption did not fire')
+    except SimulatedPreemption:
+        pass
+    state_b, rep_b = loop('b')
+    check(rep_b.resumed_from == CKPT_EVERY * (FAIL_AT // CKPT_EVERY),
+          f'resumed from {rep_b.resumed_from}')
+    differ = [f for f in BundleState._fields
+              if not (getattr(state_a, f).is_cuda
+                      and torch.equal(getattr(state_a, f),
+                                      getattr(state_b, f)))]
+    check(not differ, f'the resumed chunk loop differs in {differ}')
+    # the checkpoint itself: bytes, and save and restore times
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = save(os.path.join(root, 'timed'), 1, state_a)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    t0 = time.perf_counter()
+    back, _ = restore(os.path.join(root, 'timed'),
+                      like=init_fn(torch.device('meta')), device=dev)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    check(all(torch.equal(a, b) for a, b in zip(state_a, back)),
+          'the restored BundleState differs')
+    return dict(chunks=CHUNKS, steps_per_chunk=CHUNK_STEPS,
+                ckpt_every=CKPT_EVERY, fail_at=FAIL_AT,
+                resumed_from=rep_b.resumed_from, bit_identical=True,
+                j_best=float(state_a.j_best), gap=float(state_a.gap),
+                uninterrupted_seconds=secs_a, ckpt_bytes=nbytes,
+                save_ms=save_ms, restore_ms=restore_ms)
+
+
+def _train_resume(ctx, root):
+    """The reduced rwkv6-3b train step (WKV kernels) through `runtime.run`
+    on the card: RESUME_STEPS steps uninterrupted, then preempted at
+    RESUME_FAIL and resumed; parameters (bf16), master weights, AdamW
+    moments and counts must be equal bit for bit."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.runtime import LoopConfig, SimulatedPreemption, run
+    from repro_torch.train.trainer import init_state, make_train_step
+    cfg = dataclasses.replace(reduced('rwkv6-3b'), wkv_impl='kernel')
+    step_fn = make_train_step(cfg, TrainConfig(
+        remat='layer', warmup_steps=1, decay_steps=RESUME_STEPS))
+    pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab, RESUME_LEN,
+                                             RESUME_BATCH, seed=ctx['seed']))
+
+    def init_fn(device):
+        return init_state(cfg, ctx['seed'], device=device)
+
+    def loop(name, **kw):
+        lc = LoopConfig(total_steps=RESUME_STEPS,
+                        ckpt_dir=os.path.join(root, name),
+                        ckpt_every=RESUME_CKPT, async_ckpt=True)
+        return run(step_fn, init_fn, pipe.batch, lc, device=dev, **kw)
+
+    _reset_counts()
+    state_a, rep_a = loop('a')
+    launches = _counts()
+    try:
+        loop('b', fail_at=RESUME_FAIL)
+        check(False, 'the injected preemption did not fire')
+    except SimulatedPreemption:
+        pass
+    state_b, rep_b = loop('b')
+    pa = dict(state_a['params'].named_parameters())
+    pb = dict(state_b['params'].named_parameters())
+    differ = [k for k in pa
+              if pb[k].dtype != pa[k].dtype or not pb[k].is_cuda
+              or not torch.equal(pa[k].view(torch.int16),
+                                 pb[k].view(torch.int16))
+              or not all(torch.equal(state_a['opt']['mu'][k][f],
+                                     state_b['opt']['mu'][k][f])
+                         for f in ('master', 'm', 'v'))]
+    check(not differ and torch.equal(state_a['opt']['count'],
+                                     state_b['opt']['count'])
+          and torch.equal(state_a['step'], state_b['step']),
+          f'the resumed train state differs in {differ[:5]}')
+    check(launches['wkv_fwd'] > 0 and launches['wkv_bwd'] > 0,
+          f'the reduced train steps launched {launches}')
+    check(rep_b.losses == rep_a.losses[rep_b.resumed_from:],
+          'the resumed losses differ from the uninterrupted tail')
+    return dict(steps=RESUME_STEPS, ckpt_every=RESUME_CKPT,
+                fail_at=RESUME_FAIL, resumed_from=rep_b.resumed_from,
+                leaves=len(pa), bf16_leaves=sum(
+                    p.dtype == torch.bfloat16 for p in pa.values()),
+                bit_identical=True, wkv_launches=launches,
+                losses=rep_a.losses)
+
+
+def _grouped_counts_check(ctx, parts):
+    """The grouped 'pallas' counter (`core.counts._grouped_rank_counter`:
+    offset scores through the rank-counts kernel, cross-query pairs
+    subtracted) against the grouped tree on the same scores, at the
+    refit phase's shapes and at real weights (the main fit's w and the
+    generator's w_true): (c, d) bit-equal, one kernel launch a call.
+    `parts` maps a shape's name to its (X, y, g) pieces, concatenated."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.core.counts import make_counter
+    from repro_torch.kernels.rank_counts import ops as RC
+    ws = dict(w_main=torch.as_tensor(ctx['w_main'], dtype=torch.float32,
+                                     device=dev),
+              w_true=ctx['w_true'])
+    out = {}
+    for name, pieces in parts.items():
+        y = torch.cat([p[1] for p in pieces])
+        g = torch.cat([p[2] for p in pieces])
+        kernel = make_counter(y, g, engine='pallas')
+        tree = make_counter(y, g, engine='tree')
+        for wname, w in ws.items():
+            p = torch.cat([X @ w for X, _, _ in pieces])
+            before = RC.RANK_COUNTS.launches
+            c, d = kernel(p)
+            launched = RC.RANK_COUNTS.launches - before
+            ct, dt = tree(p)
+            check(launched == 1, f'the grouped pallas counter at {name} '
+                  f'launched the rank-counts kernel {launched} times')
+            check(torch.equal(c, ct) and torch.equal(d, dt),
+                  f'grouped pallas counts differ from the tree at {name}, '
+                  f'{wname}: c {int((c != ct).sum())} and d '
+                  f'{int((d != dt).sum())} of {len(y)} rows')
+            out[f'{name}_{wname}'] = dict(
+                m=len(y), queries=int(g.unique().numel()), launches=launched,
+                bit_equal=True, c_sum=int(c.sum()), d_sum=int(d.sum()))
+    return out
+
+
+def phase_refit(ctx):
+    """Incremental retraining on the main data in 8192 queries: the grouped
+    kernel counts held to the tree's; fit, append a drifted block of 1024
+    new queries, refit through the ledger and from w alone, against a
+    cold fit of the merged data; both again at SWAP_EPS, the ledger one
+    hot-swapped into a service; retire the block (an exact subtraction);
+    the chunk loop and the reduced train step checkpointed, preempted and
+    resumed."""
+    torch, dev = ctx['torch'], ctx['dev']
+    import tempfile
+    import numpy as np
+    from repro_torch.core.ranksvm import RankSVM
+    from repro_torch.kernels.rank_counts import ops as RC
+    from repro_torch.serve import RankingService, Scorer
+    X, y = ctx['X'], ctx['y']
+    g = torch.arange(M, device=dev) // QUERY_ROWS
+    Xn, yn = mslr_drift(torch, ctx['w_true'], ctx['edges'], DELTA_ROWS,
+                        ctx['seed'], dev)
+    gn = M // QUERY_ROWS + torch.arange(DELTA_ROWS, device=dev) // QUERY_ROWS
+    kw = dict(lam=LAM, eps=EPS, method='tree', engine='pallas',
+              max_iter=MAX_ITER)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = dict(m=M, n=N_FEATURES, queries=M // QUERY_ROWS,
+               delta_rows=DELTA_ROWS, delta_queries=DELTA_ROWS // QUERY_ROWS,
+               drift_shift=DRIFT_SHIFT,
+               grade_shares_base=[float((y == k).float().mean())
+                                  for k in range(len(GRADE_SHARES))],
+               grade_shares_delta=[float((yn == k).float().mean())
+                                   for k in range(len(GRADE_SHARES))])
+    # the grouped kernel route that every solve below counts through
+    res['grouped_counts'] = _grouped_counts_check(
+        ctx, dict(merged=((X, y, g), (Xn, yn, gn)), block=((Xn, yn, gn),)))
+    _reset_counts()
+    svm, rep = _fit(ctx, X, y, g, **kw)
+    res['base'] = _fit_row(rep)
+    res['base']['launches'] = RC.RANK_COUNTS.launches
+    check(rep.converged and RC.RANK_COUNTS.launches >= rep.iterations,
+          f'the grouped base fit: {res["base"]}')
+    A0, b0 = svm.incremental_.ledger.planes()
+    twin_w, twin_r, twin_s, twin_sw = (_twin(svm) for _ in range(4))
+    w_base = svm.w_.copy()
+    svc = RankingService(svm, micro_batch=False, device=dev)
+
+    tally = dict(revalidate=0)
+    _count_revalidation(svm.incremental_, tally)
+    before = RC.RANK_COUNTS.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    led = svm.refit(Xn, yn, gn, mode='ledger')
+    torch.cuda.synchronize()
+    led_secs = time.perf_counter() - t0
+    solve_launches = RC.RANK_COUNTS.launches - before - tally['revalidate']
+    res['ledger'] = dict(
+        _fit_row(led.fit), wall_seconds=led_secs, mode=led.mode,
+        n_planes=led.n_planes, revalidate_seconds=led.revalidate_seconds,
+        revalidate_launches=tally['revalidate'],
+        solve_launches=solve_launches)
+    check(led.mode == 'ledger' and led.fit.converged,
+          f'the ledger refit: {res["ledger"]}')
+    check(tally['revalidate'] >= led.n_planes > 0,
+          f'{tally["revalidate"]} rank-counts launches revalidated '
+          f'{led.n_planes} planes')
+    check(solve_launches >= led.fit.iterations,
+          f'{solve_launches} launches in {led.fit.iterations} iterations '
+          'of the warm solve')
+
+    Xm, ym, gm = torch.cat([X, Xn]), torch.cat([y, yn]), torch.cat([g, gn])
+    cold_svm, cold = _fit(ctx, Xm, ym, gm, **kw)
+    res['cold'] = _fit_row(cold)
+    del cold_svm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    won = twin_w.refit(Xn, yn, gn, mode='w-only')
+    torch.cuda.synchronize()
+    res['w_only'] = dict(_fit_row(won.fit),
+                         wall_seconds=time.perf_counter() - t0,
+                         mode=won.mode)
+    for name, r in (('ledger', led), ('w-only', won)):
+        check(r.fit.converged and abs(r.fit.objective - cold.objective)
+              <= EPS, f'{name} refit J {r.fit.objective} against the cold '
+              f'fit {cold.objective}')
+    j_base = _objective_on(ctx, w_base, Xm, ym, gm)
+    res['base_w_on_merged'] = j_base
+    res['w_only']['w_moved'] = not np.array_equal(twin_w.w_, w_base)
+    res['ledger']['w_moved'] = not np.array_equal(svm.w_, w_base)
+    res['ledger_over_cold'] = dict(
+        iterations=led.fit.iterations / cold.iterations,
+        seconds=led_secs / cold.seconds)
+
+    # the hot swap: a ledger refit at SWAP_EPS, below what the base w
+    # misses the merged optimum by, so its w must move; the w-only refit
+    # at the same eps beside it
+    check(j_base - cold.objective > SWAP_EPS,
+          f'the base w is within SWAP_EPS {SWAP_EPS} of the cold fit '
+          f'({j_base} against {cold.objective}): the swap refit need not '
+          'move w')
+    Xq = Xn[:QUERY_ROWS].cpu().numpy()
+    s_old = svc.scores(Xq)
+    v0 = svc.version
+    swap = {}
+    for name, twin, mode in (('ledger', twin_s, 'ledger'),
+                             ('w_only', twin_sw, 'w-only')):
+        twin.eps = SWAP_EPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = twin.refit(Xn, yn, gn, mode=mode,
+                       weight_store=svc if name == 'ledger' else None)
+        torch.cuda.synchronize()
+        swap[name] = dict(_fit_row(r.fit),
+                          wall_seconds=time.perf_counter() - t0,
+                          mode=r.mode, n_planes=r.n_planes,
+                          revalidate_seconds=r.revalidate_seconds)
+        check(r.mode == mode and r.fit.converged
+              and r.fit.objective < j_base
+              and r.fit.objective <= cold.objective + SWAP_EPS,
+              f'the {name} refit at eps {SWAP_EPS}: {swap[name]} against '
+              f'the base w {j_base} and the cold fit {cold.objective}')
+    check(abs(twin_s.report_.objective - twin_sw.report_.objective)
+          <= SWAP_EPS, 'the ledger and w-only refits at SWAP_EPS differ by '
+          'more than it')
+    s_new = svc.scores(Xq)
+    vals, idx = svc.top_k(Xq, SERVE_K)
+    want = np.argsort(-s_new, kind='stable')[:SERVE_K]
+    check(svc.version == v0 + 1, f'service version {svc.version} after '
+          f'one swap from {v0}')
+    check(np.array_equal(idx, want) and np.array_equal(vals, s_new[want]),
+          f'top_k {idx.tolist()} {vals.tolist()} differs from the stable '
+          f'argsort of the new scores {want.tolist()} '
+          f'{s_new[want].tolist()}')
+    direct = Scorer(twin_s.w_, device=dev).scores(Xq)
+    check(not np.array_equal(twin_s.w_, w_base)
+          and np.array_equal(s_new, direct)
+          and not np.array_equal(s_old, s_new),
+          'the service does not serve the refit weights after the swap '
+          f'(largest score move {np.abs(s_new - s_old).max()})')
+    svc.close()
+    res['hot_swap'] = dict(
+        swap, eps=SWAP_EPS, version=svc.version, k=SERVE_K, rows=QUERY_ROWS,
+        max_w_move=float(np.abs(twin_s.w_ - w_base).max()),
+        max_score_move=float(np.abs(s_new - s_old).max()),
+        ledger_over_w_only=dict(
+            iterations=swap['ledger']['iterations']
+            / swap['w_only']['iterations'],
+            seconds=swap['ledger']['wall_seconds']
+            / swap['w_only']['wall_seconds']))
+
+    # retire the appended block: an exact subtraction
+    inc = twin_r.incremental_
+    bid = inc.append(Xn, yn, gn)
+    seen = []
+    warm = inc.warm_state
+
+    def recording(*args, **kwargs):
+        seen.append(inc.ledger.planes())
+        return warm(*args, **kwargs)
+
+    inc.warm_state = recording
+    ret = twin_r.refit(retire=[bid], mode='ledger')
+    check(ret.mode == 'ledger' and ret.retired == (bid,) and seen
+          and np.array_equal(seen[0][0], A0)
+          and np.array_equal(seen[0][1], b0),
+          'the retired ledger is not the base ledger bit for bit')
+    check(ret.fit.converged and abs(ret.fit.objective - rep.objective)
+          <= EPS, f'the retire refit J {ret.fit.objective} against the '
+          f'base fit {rep.objective}')
+    res['retire'] = dict(_fit_row(ret.fit), mode=ret.mode,
+                         planes_bit_equal=True)
+
+    with tempfile.TemporaryDirectory() as root:
+        res['chunk_loop'] = _chunk_resume(ctx, svm.oracle_,
+                                          os.path.join(root, 'chunks'))
+        ctx['launches']['rank_counts_refit'] = RC.RANK_COUNTS.launches
+        res['launches'] = _counts()
+        res['train_resume'] = _train_resume(ctx, os.path.join(root, 'train'))
+    res['peak_memory_above_start'] = (torch.cuda.max_memory_allocated()
+                                      - start)
+    del svm, twin_w, twin_r, twin_s, twin_sw, Xm, ym, gm
+    torch.cuda.empty_cache()
+    return res
+
+
 def _reuters_poshinge(ctx):
     """'poshinge' at reuters_1m (r ~= m, the weighted tree's case): one
     resident call, and one streamed at STREAM_BUDGET_GIB, prefetch 1."""
@@ -1412,12 +1883,14 @@ def _rank_counts_row(ctx):
     # bound (they are printed as `table_bytes`).
     m = p.shape[0]
     yr, planes, table = got[2]
-    main, path = (ctx['launches']['rank_counts'],
-                  ctx['launches']['rank_counts_path'])
+    main, path, refit = (ctx['launches']['rank_counts'],
+                         ctx['launches']['rank_counts_path'],
+                         ctx['launches']['rank_counts_refit'])
     return _row('rank_counts', 'src/repro_torch/kernels/csrc/rank_counts.cu',
                 'src/repro/kernels/rank_counts/kernel.py:59',
-                main + path, err, ms, plain_ms, 16 * m,
+                main + path + refit, err, ms, plain_ms, 16 * m,
                 None, launches_main=main, launches_path=path,
+                launches_refit=refit,
                 m=m, n_ranks=n_ranks, tj=tj, events_ms=events_ms,
                 band_compares=0,
                 table_bytes=4 * (planes.numel() + table.numel()),
@@ -2071,7 +2544,7 @@ PHASES = (('build', phase_build), ('parity', phase_parity),
           ('path', phase_path), ('serve', phase_serve), ('auto', phase_auto), ('guard', phase_guard),
           ('sweep', phase_sweep), ('sparse', phase_sparse),
           ('stream', phase_stream), ('losses', phase_losses),
-          ('lm', phase_lm),
+          ('refit', phase_refit), ('lm', phase_lm),
           ('train', phase_train), ('time', phase_time))
 
 

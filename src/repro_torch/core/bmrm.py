@@ -327,6 +327,57 @@ def init_bundle_state(dim: int, max_planes: int, w0=None,
         S=torch.zeros((K, dim), dtype=f32, device=dev))
 
 
+def bundle_state_from_planes(A, b, S, dim: int, max_planes: int,
+                             w0=None, alpha=None,
+                             device='cuda') -> BundleState:
+    """A warm-startable `BundleState` from bare planes, on `device`.
+
+    The inverse of reading (A, b, S) off a fitted state: `core.incremental`
+    revalidates retained planes against changed data and re-enters the
+    device driver through here. The P <= max_planes planes land in slots
+    [0, P); `alpha` (default uniform over the P planes) is normalised and
+    seeds the first masked QP; the scalar statistics start reset, as for
+    a lambda warm start. The Gram block A A^T is the reference's float32
+    numpy product on the host, so that G equals the reference's bit for
+    bit (a product on the card would have to keep TF32 off to match it),
+    and is then moved to the device with the rest."""
+    A = np.asarray(A, np.float32)
+    b = np.asarray(b, np.float32).ravel()
+    S = np.asarray(S, np.float32)
+    K, n = int(max_planes), int(dim)
+    P = len(b)
+    if A.shape != (P, n) or S.shape != (P, n):
+        raise ValueError(f'planes A{A.shape}/S{S.shape} do not match '
+                         f'({P}, {n})')
+    if P > K:
+        raise ValueError(f'{P} planes exceed the max_planes={K} buffer; '
+                         'trim to the highest-dual-weight planes first')
+    st = init_bundle_state(n, K, w0, device=device)
+    if P == 0:
+        return st
+    if alpha is None:
+        al = np.full(P, 1.0 / P, np.float32)
+    else:
+        al = np.asarray(alpha, np.float32).ravel()
+        if al.shape != (P,):
+            raise ValueError(f'alpha has shape {al.shape}, expected ({P},)')
+        tot = float(al.sum())
+        al = al / tot if tot > 0 else np.full(P, 1.0 / P, np.float32)
+    bufs = {}
+    for name, val, shape in (('A', A, (K, n)), ('S', S, (K, n)),
+                             ('b', b, (K,)), ('alpha', al, (K,))):
+        buf = np.zeros(shape, np.float32)
+        buf[:P] = val
+        bufs[name] = buf
+    G = np.zeros((K, K), np.float32)
+    G[:P, :P] = A @ A.T
+    dev = st.w.device
+    return st._replace(
+        **{k: torch.from_numpy(v).to(dev) for k, v in bufs.items()},
+        G=torch.from_numpy(G).to(dev),
+        n_active=torch.tensor(P, dtype=torch.int32, device=dev))
+
+
 def _bundle_step(s: BundleState, step_fn, lam, eps, qp_iters: int):
     """ONE BMRM iteration over the fixed-capacity state, with no read
     back to the host: the slot of the new plane is selected by a one-hot

@@ -509,7 +509,11 @@ def make_counter(y, g, engine: str = 'tree', block: int = 2048, v=None):
     bit-equal to the call on that row (`by_row`).
 
     Grouped counting applies the key-offset trick (`_group_offsets`): the
-    utility keys are made here, the score keys on each call. What depends
+    utility keys are made here, the score keys on each call. Under
+    'pallas' a grouped counter whose utilities fit the kernel's levels
+    offsets the scores only and subtracts the cross-group pairs, which do
+    not depend on p (`_grouped_rank_counter`), so graded queries reach
+    the kernel instead of the tree. What depends
     on y alone (the kernels' rank compression and level guard, with its
     read-back) is done here once, so an oracle that keeps its counter
     pays it once per fit, for every row of a batch.
@@ -523,6 +527,10 @@ def make_counter(y, g, engine: str = 'tree', block: int = 2048, v=None):
     _validate_engine(engine)
     if engine == 'blocked':
         block = _validate_block_rows(block, 'counts_dispatch block')
+    if engine == 'pallas' and v is None and g is not None:
+        grouped = _grouped_rank_counter(y, g)
+        if grouped is not None:
+            return grouped
     yk = _f32(y) if g is None else _offset_utilities(y, g)
     if engine == 'auto' and v is None:
         from ..kernels.pairwise_rank import ops as _pr_ops
@@ -549,6 +557,61 @@ def make_counter(y, g, engine: str = 'tree', block: int = 2048, v=None):
     if g is None:
         return count
     return lambda p: count(_offset_scores(_f32(p), g))
+
+
+# Largest (groups x utility levels) table `_grouped_rank_counter` builds.
+CROSS_GROUP_TABLE = 1 << 24
+
+
+def _cross_group_counts(y, g):
+    """(C, D) int32, what score-only key offsets add to (c, d) for fixed
+    y and g: C_i = |{j : g_j < g_i, y_j > y_i}| and
+    D_i = |{j : g_j > g_i, y_j < y_i}|.
+
+    Under offsets p + g (range(p) + 2.5) a lower group's scores lie more
+    than the margin below every score of a higher group, so a pair from
+    two groups passes the c test (p_j < p_i + 1) exactly when j's group
+    is lower and the d test (p_j > p_i - 1) exactly when it is higher,
+    whatever p is. Counted from a (groups, levels) histogram; None when
+    that table would pass CROSS_GROUP_TABLE entries."""
+    yr = torch.unique(_f32(y), return_inverse=True)[1]
+    gr = torch.unique(g, return_inverse=True)[1]
+    n_r, n_g = int(yr.max()) + 1, int(gr.max()) + 1
+    if n_r * n_g > CROSS_GROUP_TABLE:
+        return None
+    hist = torch.bincount(gr * n_r + yr, minlength=n_g * n_r).view(n_g, n_r)
+    upto = torch.cumsum(hist, 0)
+    lower = upto - hist                      # rows in groups below
+    higher = upto[-1:] - upto                # rows in groups above
+    above = torch.flip(torch.cumsum(torch.flip(lower, (1,)), 1), (1,))
+    C = (above - lower)[gr, yr]              # lower groups, y above
+    D = (torch.cumsum(higher, 1) - higher)[gr, yr]   # higher groups, y below
+    return C.to(torch.int32), D.to(torch.int32)
+
+
+def _grouped_rank_counter(y, g):
+    """The grouped 'pallas' counter through the kernel: the rank-counts
+    counter of y itself over the offset scores, less the cross-group
+    pairs (`_cross_group_counts`). Its within-group comparisons are the
+    tree route's on the same offset scores, so (c, d) are the same. None
+    (take the offset-utility route) when y has more levels than the
+    kernel counts or the cross-group table would be too large."""
+    from ..kernels.rank_counts import ops as _rc_ops
+    m = int(y.shape[0])
+    if m == 0 or int(torch.unique(_f32(y)).numel()) > min(
+            _rc_ops.DEFAULT_LEVELS, _rc_ops.MAX_RANKS):
+        return None
+    cross = _cross_group_counts(y, g)
+    if cross is None:
+        return None
+    C, D = cross
+    count = _rc_ops.rank_counter(_f32(y))
+
+    def grouped(p):
+        c, d = count(_offset_scores(_f32(p), g))
+        return c - C, d - D
+
+    return grouped
 
 
 def counts_dispatch(p, y, g, engine: str = 'tree', block: int = 2048,

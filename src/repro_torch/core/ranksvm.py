@@ -12,14 +12,22 @@ device='cpu' is given. `path` sweeps a regularization path
 (`core.bmrm.bmrm_path`), and `scorer`/`scores`/`top_k` serve the fitted
 weights through `repro_torch.serve`.
 
-method='sharded' and incremental refits are not ported yet and raise
-NotImplementedError naming their ROADMAP.md item. `incremental_` stays
-None.
+Both `fit` and `path` leave an `incremental_` handle
+(`core.incremental.IncrementalFit`) over a `data.rowblocks.BlockStore`
+of the training data; `refit` appends or retires row blocks and solves
+warm from the revalidated planes ('ledger') or from w alone ('w-only'),
+and can hot-swap the new weights into a serving `WeightStore` or
+`RankingService` (DESIGN.md §11). The store holds the fit's features as
+given: a tensor on the card is neither copied nor moved.
+
+method='sharded' is not ported yet and raises NotImplementedError
+naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -27,13 +35,18 @@ import torch
 
 from ..kernels.platform import full_f32, resolve_device
 from . import rank_loss as _rank_loss
-from .bmrm import (DEFAULT_HYBRID_PREFIX, SOLVERS, _validate_lams,
+from .bmrm import (DEFAULT_HYBRID_PREFIX, DEFAULT_MAX_PLANES,
+                   F32_EPS_FLOOR, SOLVERS, _validate_lams,
                    _validate_path_mode, bmrm, bmrm_path)
 from ..data import rowblocks as _rowblocks
-from ..data.rowblocks import _validate_prefetch
+from ..data.rowblocks import BlockStore, _validate_prefetch
 from .counts import _validate_block_rows, _validate_engine
+from .incremental import (LEDGER_LOSSES, IncrementalFit, RefitReport,
+                          block_partials)
 from .oracle import (METHODS, _as_numpy, _validate_loss, empirical_risk,
                      make_oracle)
+
+REFIT_MODES = ('ledger', 'w-only', 'auto')
 
 
 @dataclasses.dataclass
@@ -134,24 +147,33 @@ class RankSVM:
         self.w_: np.ndarray | None = None
         self.report_: FitReport | None = None
         self.oracle_ = None
-        self.incremental_ = None
+        self.incremental_: IncrementalFit | None = None
+        self.refit_report_: RefitReport | None = None
 
     # -- public API --------------------------------------------------------
 
-    def fit(self, X, y, groups=None):
+    def fit(self, X, y=None, groups=None):
         """Learn w from features X (m, n) and utility scores y.
 
         X is dense (numpy, or torch: a float32 X already on the device is
         used in place), CSR (`data.sparse.CSRMatrix`, scipy, a torch
         sparse tensor), an np.memmap or a `data.rowblocks` row-block
-        source; y is numpy or torch."""
-        oracle = self._make_oracle(X, y, groups)
+        source; y is numpy or torch. X may also be a `BlockStore` (y and
+        groups omitted: the store carries them). Either way the fit leaves
+        an `incremental_` handle, so that `refit()` can later append or
+        retire row blocks and warm-start from this solution."""
+        store, y, groups = self._as_store(X, y, groups)
+        oracle = self._make_oracle(store if isinstance(X, BlockStore)
+                                   else X, y, groups)
         self.oracle_ = oracle
         t0 = time.perf_counter()
         res = self._solve(oracle)
         dt = time.perf_counter() - t0
         self.w_ = res.w
         self.report_ = self._report(res, dt)
+        self.incremental_ = IncrementalFit(store, res.state,
+                                           self._ledger_norm(oracle),
+                                           partials_fn=self._partials_fn())
         return self
 
     def path(self, X, y, lams, groups=None, mode: str = 'auto',
@@ -172,11 +194,13 @@ class RankSVM:
         The mode and the lambdas are checked before the oracle is built.
         Leaves the estimator fitted at the LAST lambda of `lams`. In vmap
         mode each report's `seconds` is the lambda's share of the joint
-        sweep. `incremental_` stays None: refits are ROADMAP.md Queue 1
-        item 11."""
+        sweep. `incremental_` is left from the last lambda's state, as
+        `fit` leaves it."""
         _validate_path_mode(mode)
         lams = _validate_lams(lams)
-        oracle = self._make_oracle(X, y, groups)
+        store, y, groups = self._as_store(X, y, groups)
+        oracle = self._make_oracle(store if isinstance(X, BlockStore)
+                                   else X, y, groups)
         self.oracle_ = oracle
         results = bmrm_path(
             oracle, lams, mode=mode, eps=self.eps, max_iter=self.max_iter,
@@ -194,11 +218,128 @@ class RankSVM:
                   for lam, res in zip(lams, results)]
         last = points[-1]
         self.w_, self.report_, self.lam = last.w, last.report, last.lam
+        self.incremental_ = IncrementalFit(store, results[-1].state,
+                                           self._ledger_norm(oracle),
+                                           partials_fn=self._partials_fn())
         return points
 
-    def refit(self, *args, **kwargs):
-        raise NotImplementedError('incremental refits are not ported yet: '
-                                  'ROADMAP.md Queue 1 item 11')
+    def refit(self, X=None, y=None, groups=None, *, retire=(),
+              mode: str = 'auto', weight_store=None) -> RefitReport:
+        """Retrain incrementally after a data change (DESIGN.md §11).
+
+        Appends one row block (X, y[, groups]) and/or retires blocks by
+        id, then solves warm instead of cold:
+
+          mode='ledger'  revalidate every retained plane against the
+                         changed rows only (`core.incremental.PlaneLedger`)
+                         and re-enter the device driver with the plane
+                         buffer and the previous dual. Needs a
+                         device-driver fit (the host driver keeps no
+                         bundle state); a retired base block makes the
+                         ledger rebuild over the survivors.
+          mode='w-only'  drop the planes; warm-start from w alone.
+          mode='auto'    'ledger' when there is a ledger, the merged
+                         oracle runs the device driver and no retired
+                         block belongs to the base component; 'w-only'
+                         otherwise (always for loss='poshinge').
+
+        Returns a `RefitReport`, also kept as `refit_report_`, and
+        refreshes `w_` and `report_`; with `weight_store` (a
+        `serve.WeightStore` or a `serve.RankingService`) the new weights
+        are hot-swapped into it."""
+        if self.incremental_ is None:
+            raise RuntimeError('fit() first — refit() continues a fitted '
+                               'model')
+        if mode not in REFIT_MODES:
+            raise ValueError(f'unknown refit mode {mode!r}; expected one '
+                             f'of {REFIT_MODES}')
+        if mode == 'ledger' and self.loss not in LEDGER_LOSSES:
+            raise ValueError(
+                f"mode='ledger' is unavailable for loss={self.loss!r}: "
+                'its position weights depend on merged within-group '
+                'utility ranks, so retained planes are not per-block '
+                'revalidatable (core.incremental.LEDGER_LOSSES); refit '
+                "with mode='w-only' (mode='auto' does so automatically)")
+        inc = self.incremental_
+        retire = ((int(retire),) if isinstance(retire, (int, np.integer))
+                  else tuple(int(b) for b in retire))
+        if X is None and not retire:
+            raise ValueError('refit() needs a block to append (X, y) '
+                             'and/or block ids to retire')
+        if (X is None) != (y is None):
+            raise ValueError('append needs both X and y')
+
+        resolved = mode
+        if resolved != 'w-only' and inc.ledger is None:
+            if resolved == 'ledger':
+                raise ValueError(
+                    "mode='ledger' needs a device-driver fitted bundle "
+                    'state (the host driver keeps none); refit with '
+                    "mode='w-only' or fit with solver='device'")
+            resolved = 'w-only'
+        if resolved == 'auto':
+            # Base-component planes are not per-block subtractable: a
+            # ledger refit would rebuild partials over every survivor.
+            resolved = ('w-only' if any(b in inc.ledger.base_bids
+                                        for b in retire) else 'ledger')
+        if resolved == 'w-only':
+            inc.ledger = None
+
+        inc.revalidate_seconds = 0.0
+        for bid in retire:
+            inc.retire(bid)
+        appended, delta_rows = (), 0
+        if X is not None:
+            bid = inc.append(X, y, groups)
+            appended = (bid,)
+            delta_rows = inc.store.member(bid).source.m
+        if not inc.store.block_ids:
+            raise ValueError('refit retired every block; nothing left to '
+                             'train on')
+
+        store = inc.store
+        oracle = self._make_oracle(store, store.y, store.groups)
+        self.oracle_ = oracle
+        if resolved == 'ledger' and not self._device_solvable(oracle):
+            if mode == 'ledger':
+                raise ValueError(
+                    "mode='ledger' needs the device driver, but the "
+                    f'merged {type(oracle).__name__} cannot run it under '
+                    f"solver={self.solver!r} (eps={self.eps:g}); use "
+                    "mode='w-only'")
+            resolved = 'w-only'
+            inc.ledger = None
+
+        K = (int(self.max_planes) if self.max_planes is not None
+             else DEFAULT_MAX_PLANES)
+        t0 = time.perf_counter()
+        state = None
+        if resolved == 'ledger':
+            state = inc.warm_state(int(oracle.n), K, w0=self.w_,
+                                   device=oracle.device)
+            if state is None:           # e.g. the ledger lost all pairs
+                resolved = 'w-only'
+        if resolved == 'ledger':
+            n_planes = int(state.n_active)
+            res = self._solve(oracle, state=state)
+        else:
+            n_planes = 0
+            res = self._solve(oracle, w0=self.w_)
+        dt = time.perf_counter() - t0
+
+        inc.commit(res.state, self._ledger_norm(oracle))
+        self.w_ = res.w
+        self.report_ = self._report(res, dt)
+        self.refit_report_ = RefitReport(
+            mode=resolved, appended=appended, retired=retire,
+            n_planes=n_planes, delta_rows=delta_rows,
+            revalidate_seconds=inc.revalidate_seconds, fit=self.report_)
+        if weight_store is not None:
+            if hasattr(weight_store, 'swap_weights'):   # RankingService
+                weight_store.swap_weights(self)
+            else:                                       # WeightStore
+                weight_store.swap(self)
+        return self.refit_report_
 
     def decision_function(self, X) -> np.ndarray:
         """Scores X @ w in float64, as the reference's host matvec."""
@@ -274,7 +415,65 @@ class RankSVM:
 
     # -- internals ---------------------------------------------------------
 
+    def _as_store(self, X, y, groups):
+        """(BlockStore, y, groups) of a fit's input. A raw X becomes
+        block 0 of a fresh store (wrapped, not copied); a BlockStore
+        passes through and carries its own y and groups."""
+        if isinstance(X, BlockStore):
+            if y is not None or groups is not None:
+                raise ValueError('a BlockStore carries its own y/groups; '
+                                 'do not pass them separately')
+            if not X.block_ids:
+                raise ValueError('cannot fit an empty BlockStore')
+            return X, X.y, X.groups
+        if y is None:
+            raise ValueError('y is required (omit it only when X is a '
+                             'BlockStore)')
+        store = BlockStore()
+        store.append(X, y, groups)
+        return store, y, groups
+
+    def _partials_fn(self):
+        """The `IncrementalFit` revalidation hook: `block_partials` with
+        this estimator's engine, loss and device. It holds those values,
+        not the estimator: a bound method would close a reference cycle
+        (estimator -> handle -> estimator) that keeps a dropped
+        estimator's oracle, and its tensors on the card, until the cycle
+        collector runs."""
+        return functools.partial(block_partials, engine=self.engine,
+                                 pair_block=self.pair_block, loss=self.loss,
+                                 device=self.device)
+
+    def _ledger_norm(self, oracle) -> int:
+        """The normalizer the plane ledger is keyed on: the oracle's
+        loss norm (N or N+), or 0 for a loss with no per-block plane
+        decomposition, which keeps no ledger (LEDGER_LOSSES)."""
+        if self.loss not in LEDGER_LOSSES:
+            return 0
+        return int(oracle.norm)
+
+    def _device_solvable(self, oracle) -> bool:
+        """Would `_solve` run this oracle on the device driver? Mirrors
+        `core.bmrm.bmrm`'s dispatch: ledger warm starts are bundle-state
+        warm starts, which only the device driver takes."""
+        capable = bool(getattr(oracle, 'supports_device_solver', False))
+        if self.solver == 'device':
+            return capable
+        return (self.solver == 'auto' and capable
+                and getattr(oracle, 'prefer_device_solver', True)
+                and self.eps >= F32_EPS_FLOOR)
+
     def _make_oracle(self, X, y, groups):
+        if isinstance(X, BlockStore):
+            # The fused methods need one materialized X; method='auto'
+            # keeps a store streaming only when it is disk-backed or
+            # projects over the budget, as make_oracle's own rule does.
+            if self.method in ('tree', 'pairs') or (
+                    self.method == 'auto' and not X.disk_backed and (
+                        self.memory_budget is None
+                        or _rowblocks.projected_resident_gib(X)
+                        <= self.memory_budget)):
+                X = X.materialize()
         return make_oracle(X, y, groups=groups, method=self.method,
                            loss=self.loss, engine=self.engine,
                            pair_block=self.pair_block,
@@ -282,11 +481,11 @@ class RankSVM:
                            stream_block=self.stream_block,
                            prefetch=self.prefetch, device=self.device)
 
-    def _solve(self, oracle):
+    def _solve(self, oracle, state=None, w0=None):
         return bmrm(oracle, lam=self.lam, eps=self.eps,
                     max_iter=self.max_iter, solver=self.solver,
                     max_planes=self.max_planes, sync_every=self.sync_every,
-                    qp_iters=self.qp_iters,
+                    qp_iters=self.qp_iters, state=state, w0=w0,
                     callback=(lambda t, w, j, g:
                               print(f'  bmrm it={t} J_best={j:.6f} '
                                     f'gap={g:.2e}'))

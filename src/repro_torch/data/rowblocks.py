@@ -18,9 +18,12 @@ Three implementations cover the storage layouts the oracles accept:
                        out-of-core case: only the touched blocks are paged
                        in, so m is bounded by disk, not RAM
 
-The reference's fourth source, `BlockStore` (append/retire blocks for
-incremental retraining), comes with its only user, ROADMAP.md Queue 1
-item 11.
+`BlockStore` is the data of incremental retraining (`core.incremental`):
+an ordered, mutable collection of such sources, appended and retired as
+whole blocks. Its members may also be dense torch tensors
+(`TensorBlockSource`, a port addition), which stay where they are: a
+store of one tensor materializes to that tensor itself, so wrapping a
+fit's features in a store copies nothing.
 
 `as_row_block_source` dispatches on the input type;
 `projected_resident_gib` is the memory model behind `make_oracle`'s
@@ -43,6 +46,7 @@ from typing import NamedTuple
 
 import numpy as np
 import scipy.sparse as _scipy_sparse
+import torch
 
 from .sparse import CSRMatrix
 
@@ -404,6 +408,292 @@ class MemmapBlockSource(RowBlockSource):
         # The raw-dtype window, copied out; the base payload matvecs run
         # the same astype(f64) products as the *_block kernels above.
         return self._window(lo, hi)
+
+
+class TensorBlockSource(RowBlockSource):
+    """A torch tensor (dense, or sparse) as a row-block source, kept where
+    it is.
+
+    Host consumers (the streaming oracle's passes) get float32 numpy
+    slabs copied off the device block by block (a sparse tensor through
+    a host CSR copy made at the first such read); `BlockStore.materialize`
+    hands the tensor itself to a fused oracle, which takes a float32
+    tensor in place and a sparse one in its own layout."""
+
+    kind = 'tensor'
+
+    def __init__(self, X):
+        if not torch.is_tensor(X):
+            raise ValueError('TensorBlockSource needs a torch tensor')
+        if X.dim() != 2:
+            raise ValueError(f'feature matrix must be 2-D; got shape '
+                             f'{tuple(X.shape)}')
+        self._X = X
+        self._host_csr = None
+        self.m, self.n = map(int, X.shape)
+
+    @property
+    def tensor(self) -> torch.Tensor:
+        return self._X
+
+    def block(self, lo: int, hi: int) -> np.ndarray:
+        lo, hi = self._check_range(lo, hi)
+        if self._X.layout != torch.strided:
+            if self._host_csr is None:
+                self._host_csr = CSRBlockSource(self._X)
+            return self._host_csr.block(lo, hi)
+        return self._X[lo:hi].detach().to(device='cpu',
+                                          dtype=torch.float32).numpy()
+
+
+class _StoreMember(NamedTuple):
+    """One retained block of a `BlockStore`: stable id, the wrapped
+    source holding its rows, and the aligned per-row arrays."""
+
+    bid: int
+    source: RowBlockSource
+    y: np.ndarray
+    groups: 'np.ndarray | None'
+
+
+def _host_array(a) -> np.ndarray:
+    if torch.is_tensor(a):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+class BlockStore(RowBlockSource):
+    """Mutable ordered collection of row blocks with aligned labels.
+
+    The data of incremental retraining (`core.incremental`, DESIGN.md
+    §11): `append(X, y, groups)` adds a block under a stable integer id
+    (a counter, never reused) and `retire(bid)` removes one, while the
+    store stays a full `RowBlockSource` over the retained blocks in
+    insertion order, read without concatenating them. `y` and `groups`
+    are the aligned slices concatenated in the same order (host numpy),
+    so (store, store.y, store.groups) is always one training set.
+
+    Group ids are global: an id reused across blocks is one query whose
+    documents span blocks. The oracles accept that, but the plane ledger
+    cannot attribute such cross-block pairs to either block and drops
+    them (valid, looser bounds); keep queries within blocks when refit
+    tightness matters.
+
+    Members keep their layouts (dense, CSR, memmap, or a dense torch
+    tensor on its device) and their per-block kernels; a block or payload
+    spanning members is assembled from the members it touches.
+    `materialize()` gives the single X a fused oracle needs: the tensor
+    itself for a store of one tensor, the members concatenated on the
+    first dense tensor's device when there is one, a merged `CSRMatrix`
+    when every member is CSR, else dense float32 numpy.
+    """
+
+    kind = 'blocks'
+
+    def __init__(self, n: 'int | None' = None):
+        self._n = None if n is None else int(n)
+        self._members: dict[int, _StoreMember] = {}
+        self._next_id = 0
+
+    # -- mutation ---------------------------------------------------------
+
+    def append(self, X, y, groups=None) -> int:
+        """Add a block; returns its stable id. X is wrapped per layout (a
+        dense torch tensor stays on its device); y (and groups, if the
+        store uses groups) must align with X's rows. Grouping is
+        all-or-none across the store: mixing grouped and ungrouped blocks
+        would change pair semantics between refits."""
+        if isinstance(X, BlockStore):
+            raise ValueError('BlockStore members must be leaf sources; '
+                             'nesting a BlockStore is not supported')
+        src = (TensorBlockSource(X) if torch.is_tensor(X)
+               else as_row_block_source(X))
+        if self._n is not None and src.n != self._n:
+            raise ValueError(f'appended block has {src.n} features but the '
+                             f'store holds {self._n}-feature rows')
+        y = _host_array(y)
+        if y.shape != (src.m,):
+            raise ValueError(f'y has shape {y.shape} but the appended '
+                             f'block has {src.m} rows')
+        if groups is not None:
+            groups = _host_array(groups)
+            if groups.shape != (src.m,):
+                raise ValueError(f'groups has shape {groups.shape} but the '
+                                 f'appended block has {src.m} rows')
+        if self._members:
+            grouped = next(iter(
+                self._members.values())).groups is not None
+            if grouped != (groups is not None):
+                raise ValueError(
+                    'grouping is all-or-none across a BlockStore: the '
+                    f'store holds {"grouped" if grouped else "ungrouped"} '
+                    'blocks but the appended block is '
+                    f'{"grouped" if groups is not None else "ungrouped"}')
+        bid = self._next_id
+        self._next_id += 1
+        self._members[bid] = _StoreMember(bid, src, y, groups)
+        if self._n is None:
+            self._n = src.n
+        return bid
+
+    def retire(self, bid: int):
+        """Remove block `bid`; its rows leave `y`/`groups`/`block()` and
+        its id is never reused."""
+        self.member(bid)
+        del self._members[bid]
+
+    # -- inventory --------------------------------------------------------
+
+    @property
+    def block_ids(self) -> tuple:
+        """Retained block ids, in concatenation (insertion) order."""
+        return tuple(self._members)
+
+    def member(self, bid: int) -> _StoreMember:
+        if bid not in self._members:
+            raise ValueError(f'no block {bid!r} in the store; retained '
+                             f'ids: {sorted(self._members)}')
+        return self._members[bid]
+
+    def member_range(self, bid: int) -> tuple[int, int]:
+        """Row span [lo, hi) of block `bid` in the current concatenated
+        order (shifts when earlier blocks are retired)."""
+        for lo, mem in self._spans():
+            if mem.bid == bid:
+                return lo, lo + mem.source.m
+        raise ValueError(f'no block {bid!r} in the store; retained '
+                         f'ids: {sorted(self._members)}')
+
+    @property
+    def m(self) -> int:
+        return sum(mem.source.m for mem in self._members.values())
+
+    @property
+    def n(self) -> int:
+        return 0 if self._n is None else self._n
+
+    @property
+    def y(self) -> np.ndarray:
+        """Labels of the retained blocks, concatenated in block order."""
+        parts = [mem.y for mem in self._members.values()]
+        return np.concatenate(parts) if parts else np.zeros(0)
+
+    @property
+    def groups(self) -> 'np.ndarray | None':
+        """Group ids concatenated in block order; None for an ungrouped
+        store."""
+        parts = [mem.groups for mem in self._members.values()]
+        if not parts or parts[0] is None:
+            return None
+        return np.concatenate(parts)
+
+    # -- RowBlockSource surface -------------------------------------------
+
+    def _spans(self):
+        lo = 0
+        for mem in self._members.values():
+            yield lo, mem
+            lo += mem.source.m
+
+    def _pieces(self, lo: int, hi: int):
+        """(member, member-local lo, member-local hi) for the members a
+        global row range touches."""
+        for mlo, mem in self._spans():
+            a, b = max(lo, mlo), min(hi, mlo + mem.source.m)
+            if a < b:
+                yield mem, a - mlo, b - mlo
+
+    @staticmethod
+    def _join(parts, empty):
+        if not parts:
+            return empty
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    def block(self, lo: int, hi: int) -> np.ndarray:
+        lo, hi = self._check_range(lo, hi)
+        return self._join([mem.source.block(a, b) for mem, a, b in
+                           self._pieces(lo, hi)],
+                          np.zeros((0, self.n), np.float32))
+
+    def matvec_block(self, lo: int, hi: int, w) -> np.ndarray:
+        lo, hi = self._check_range(lo, hi)
+        return self._join([mem.source.matvec_block(a, b, w) for mem, a, b
+                           in self._pieces(lo, hi)], np.zeros(0))
+
+    def rmatvec_block(self, lo: int, hi: int, v) -> np.ndarray:
+        lo, hi = self._check_range(lo, hi)
+        v = np.asarray(v, np.float64)
+        # Pieces cover [lo, hi) contiguously in order, so a running
+        # offset into v addresses each member's slice.
+        out, at = np.zeros(self.n), 0
+        for mem, a, b in self._pieces(lo, hi):
+            out += mem.source.rmatvec_block(a, b, v[at:at + (b - a)])
+            at += b - a
+        return out
+
+    def _payload(self, lo: int, hi: int):
+        # Each touched member's layout-native slab, tagged with its
+        # source, so the payload kernels stay native.
+        return [(mem.source, mem.source._payload(a, b))
+                for mem, a, b in self._pieces(lo, hi)]
+
+    def _payload_matvec(self, payload, w) -> np.ndarray:
+        return self._join([src._payload_matvec(p, w) for src, p in payload],
+                          np.zeros(0))
+
+    def _payload_rmatvec(self, payload, v) -> np.ndarray:
+        v = np.asarray(v, np.float64)
+        out, at = np.zeros(self.n), 0
+        for src, p in payload:
+            nrows = p.shape[0]
+            out += src._payload_rmatvec(p, v[at:at + nrows])
+            at += nrows
+        return out
+
+    def materialize(self):
+        """The single X a fused oracle needs: the tensor of a one-tensor
+        store itself (no copy), the members concatenated on the first
+        dense tensor's device (the others uploaded), a merged `CSRMatrix`
+        when every member is CSR (O(nnz)), else dense float32 numpy."""
+        if not self._members:
+            raise ValueError('cannot materialize an empty BlockStore')
+        srcs = [mem.source for mem in self._members.values()]
+        if len(srcs) == 1 and isinstance(srcs[0], TensorBlockSource):
+            return srcs[0].tensor
+        dense = [s for s in srcs if isinstance(s, TensorBlockSource)
+                 and s.tensor.layout == torch.strided]
+        if dense:
+            dev = dense[0].tensor.device
+            return torch.cat([
+                s.tensor.to(device=dev, dtype=torch.float32)
+                if s in dense
+                else torch.as_tensor(s.block(0, s.m), device=dev)
+                for s in srcs])
+        if all(isinstance(s, CSRBlockSource) for s in srcs):
+            mats = [s._X for s in srcs]
+            indptrs = [np.asarray(mats[0].indptr)]
+            off = int(indptrs[0][-1])
+            for mm in mats[1:]:
+                ip = np.asarray(mm.indptr)
+                indptrs.append(ip[1:] + off)
+                off += int(ip[-1])
+            return CSRMatrix(
+                np.concatenate([np.asarray(mm.data) for mm in mats]),
+                np.concatenate([np.asarray(mm.indices) for mm in mats]),
+                np.concatenate(indptrs), (self.m, self.n))
+        return self.block(0, self.m)
+
+    def row_bytes(self) -> int:
+        if not self._members:
+            return 4 * self.n
+        total = sum(mem.source.row_bytes() * mem.source.m
+                    for mem in self._members.values())
+        return max(1, total // self.m)
+
+    @property
+    def disk_backed(self) -> bool:
+        return any(mem.source.disk_backed
+                   for mem in self._members.values())
 
 
 def _is_csr_like(X) -> bool:

@@ -7,7 +7,9 @@ of `repro.data.synthetic` that the port trains on.
     (`data.sparse.random_tfidf`) with utilities the similarity to one
     removed target document, so r ~= m;
   * `ordinal_like` r-level ordinal utilities (graded relevance), the
-    tie-heavy regime.
+    tie-heavy regime;
+  * `cadata_drift` `cadata_like` plus a covariate-shifted block, the
+    appended data of incremental retraining (`core.incremental`).
 
 Deterministic in `seed` and drawn with numpy, so for equal arguments
 they return the same arrays as the JAX package's generators.
@@ -53,6 +55,30 @@ def cadata_like(m: int = 16000, m_test: int = 4000, seed: int = 0,
          + 0.3 * X[:, 2] ** 2
          + noise * rng.normal(size=total))
     return RankingData(X[:m], y[:m], X[m:], y[m:], 'cadata-like')
+
+
+def cadata_drift(m: int = 16000, m_delta: int = 1600, shift: float = 0.5,
+                 seed: int = 0, noise: float = 0.1
+                 ) -> 'tuple[RankingData, np.ndarray, np.ndarray]':
+    """`(base, X_delta, y_delta)`: `base` is `cadata_like(m, ...)`
+    unchanged, and the delta block's features come from the same process
+    with every covariate mean shifted by `shift` standard deviations
+    while the utility function stays fixed: drifted traffic appended to a
+    model fitted on `base` (DESIGN.md §11)."""
+    m_test = 4000
+    base = cadata_like(m, m_test, seed=seed, noise=noise)
+    # The base's utility weights: the draw right after its (total, 8)
+    # feature draw, replayed.
+    base_rng = np.random.default_rng(seed)
+    base_rng.normal(size=(m + m_test, 8))
+    w = base_rng.normal(size=8)
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0xD41F]))
+    X_delta = rng.normal(size=(m_delta, 8)) + shift
+    y_delta = (X_delta @ w
+               + 0.5 * np.sin(2.0 * X_delta[:, 0]) * X_delta[:, 1]
+               + 0.3 * X_delta[:, 2] ** 2
+               + noise * rng.normal(size=m_delta))
+    return base, X_delta, y_delta
 
 
 def reuters_like(m: int = 64000, m_test: int = 20000, n: int = 49152,

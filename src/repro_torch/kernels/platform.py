@@ -40,13 +40,15 @@ def resolve_device(device=None) -> torch.device:
 
     Raises when that is a CUDA device and none is present: the port never
     falls back to the CPU on its own. Pass device='cpu' to run the plain
-    versions of the kernels on the CPU (what the tests do)."""
+    versions of the kernels on the CPU (what the tests do). The meta
+    device passes too: it allocates nothing, and the runtime loop builds
+    a state's structure there before it restores a checkpoint."""
     dev = torch.device('cuda' if device is None else device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(
             'no CUDA device is available; pass device="cpu" to run the '
             'port on the CPU through the plain versions of its kernels')
-    if dev.type not in ('cuda', 'cpu'):
+    if dev.type not in ('cuda', 'cpu', 'meta'):
         raise ValueError(f'unsupported device {dev}; expected cuda or cpu')
     return dev
 

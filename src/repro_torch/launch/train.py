@@ -2,33 +2,34 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch rwkv6-3b --reduced --steps 20 --batch 4 --seq 64 \
-        --objective lm --device cpu
+        --objective lm --device cpu --ckpt-dir /path/to/run1
 
 Trains the chosen architecture from a seeded init on the port's token
-pipelines: the full config by default, `--reduced` for the small
-same-family config. `--objective rank_hinge` trains the scalar score head
-with the paper's linearithmic pairwise hinge; `lm` is next-token
-cross-entropy. It prints the reference's step and done lines. It runs on
-the CUDA device unless given `--device cpu`.
+pipelines through the fault-tolerant loop (`runtime.run`): the full
+config by default, `--reduced` for the small same-family config.
+`--objective rank_hinge` trains the scalar score head with the paper's
+linearithmic pairwise hinge; `lm` is next-token cross-entropy. It prints
+the reference's step and done lines. It runs on the CUDA device unless
+given `--device cpu`.
 
-The reference runs its fault-tolerant loop (checkpoints, auto-resume);
-that loop is ROADMAP Queue 1 item 11, so `--ckpt-dir` and `--ckpt-every`
-raise here.
+With `--ckpt-dir` it checkpoints every `--ckpt-every` steps (default 50)
+and at the end, with a metrics.jsonl beside them, and a second run with
+the same directory resumes from the last committed step, as the
+reference does. Without it, it trains with no checkpoints (the reference
+defaults to a fixed directory under /tmp instead).
 """
 
 from __future__ import annotations
 
 import argparse
-import time
-
-import numpy as np
-import torch
+import os
 
 from ..configs.base import TrainConfig
 from ..configs.reduced import reduce_config
 from ..configs.registry import ARCHS, get
 from ..data import RewardPipeline, TokenPipeline, TokenPipelineConfig
 from ..kernels.platform import resolve_device
+from ..runtime import LoopConfig, run
 from ..train.trainer import init_state, make_train_step
 
 
@@ -46,16 +47,12 @@ def main(argv=None):
     ap.add_argument('--microbatches', type=int, default=1)
     ap.add_argument('--remat', default='none', choices=['none', 'layer'])
     ap.add_argument('--ckpt-dir', default=None)
-    ap.add_argument('--ckpt-every', type=int, default=None)
+    ap.add_argument('--ckpt-every', type=int, default=50)
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--device', default=None,
                     help="'cpu' to run the plain versions of the kernels "
                          'on the CPU; default the CUDA device')
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None or args.ckpt_every is not None:
-        raise NotImplementedError(
-            'checkpoints and resume are the fault-tolerant loop, ROADMAP '
-            'Queue 1 item 11; the port trains without them')
 
     dev = resolve_device(args.device)
     cfg = get(args.arch)
@@ -78,25 +75,30 @@ def main(argv=None):
         batch_fn = TokenPipeline(TokenPipelineConfig(
             cfg.vocab, args.seq, args.batch, seed=args.seed)).batch
 
-    t0 = time.perf_counter()
-    state = init_state(cfg, args.seed, device=dev)
-    losses = []
-    for step in range(args.steps):
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in batch_fn(step).items()}
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics['loss'])
-        if not np.isfinite(loss):
-            raise FloatingPointError(f'non-finite loss at {step}')
-        losses.append(loss)
-        done = step + 1
-        if done % max(args.steps // 10, 1) == 0:
-            print(f'step {done:5d}  loss {loss:.4f}  '
+    ckpt_dir = args.ckpt_dir
+    if ckpt_dir is not None:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    lc = LoopConfig(total_steps=args.steps, ckpt_dir=ckpt_dir,
+                    ckpt_every=args.ckpt_every, async_ckpt=True,
+                    log_path=(os.path.join(ckpt_dir, 'metrics.jsonl')
+                              if ckpt_dir else None))
+
+    def on_step(step, state, metrics):
+        if step % max(args.steps // 10, 1) == 0:
+            print(f'step {step:5d}  loss {float(metrics["loss"]):.4f}  '
                   f'lr {float(metrics["lr"]):.2e}', flush=True)
-    curve = (f'loss {losses[0]:.4f} -> {losses[-1]:.4f}' if losses
-             else 'no steps')
-    print(f'done: {args.steps} steps in {time.perf_counter() - t0:.1f}s; '
-          f'{curve}; no checkpoints (ROADMAP Queue 1 item 11)')
+
+    state, rep = run(step_fn,
+                     lambda device: init_state(cfg, args.seed, device=device),
+                     batch_fn, lc, device=dev, on_step=on_step)
+    if rep.resumed_from is not None:
+        print(f'(resumed from step {rep.resumed_from})')
+    curve = (f'loss {rep.losses[0]:.4f} -> {rep.losses[-1]:.4f}'
+             if rep.losses else 'already complete')
+    where = (f'checkpoints in {ckpt_dir}' if ckpt_dir
+             else 'no checkpoints (no --ckpt-dir)')
+    print(f'done: {rep.final_step} steps in {rep.seconds:.1f}s; '
+          f'{curve}; {where}')
 
 
 if __name__ == '__main__':

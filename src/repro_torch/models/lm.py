@@ -151,8 +151,11 @@ def from_state_dict(cfg, state_dict) -> LM:
 def init_model(cfg, seed: int = 0, device=None, dtype=bf16) -> LM:
     """An `LM` with the reference's initialization (`init_params` over
     `model_defs(cfg)`, in `dtype`) drawn from a `torch.Generator` seeded
-    with `seed` on `device` (default: the CUDA device)."""
+    with `seed` on `device` (default: the CUDA device). On the meta
+    device nothing is drawn: the model's structure, with no storage."""
     dev = resolve_device(device)
+    if dev.type == 'meta':
+        return LM(cfg, device=dev).to(dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return from_state_dict(cfg, state_dict_from_tree(

@@ -35,19 +35,28 @@ def init(params) -> dict:
 
 
 @torch.no_grad()
+def global_norm(grads):
+    """The float32 global norm of `grads` (name -> tensor), the norm
+    `apply` clips to."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(f32)))
+                          for g in grads.values()))
+
+
+@torch.no_grad()
 def apply(grads, state, params, *, lr, beta1=0.9, beta2=0.95, eps=1e-8,
-          weight_decay=0.1, grad_clip=1.0):
+          weight_decay=0.1, grad_clip=1.0, gnorm=None):
     """One AdamW step, in place. `grads`, `params`: mappings name ->
     tensor with the keys of state['mu']; `lr`: this step's learning rate
     (a float32 scalar tensor or a number).
 
     The gradients are clipped to the global norm `grad_clip`; bias
     correction follows the int32 count; decay is decoupled:
-    master <- master (1 - lr wd) - lr m^ / (sqrt(v^) + eps). Returns
+    master <- master (1 - lr wd) - lr m^ / (sqrt(v^) + eps). `gnorm` is
+    `global_norm(grads)` where the caller has computed it already. Returns
     (params, state, gnorm), the first two being the arguments, updated."""
     count = state['count'] + 1
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(f32)))
-                           for g in grads.values()))
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.where(gnorm > grad_clip, grad_clip / (gnorm + 1e-9),
                         torch.ones((), dtype=f32, device=gnorm.device))
     cf = count.to(f32)

@@ -9,7 +9,12 @@ loss of `core.rank_loss` (its gradient is Lemma 2's subgradient).
 
 The train state is {'params': an `LM` (bf16 compute weights),
 'opt': `optim.adamw` state, 'step': int32 scalar}. A step updates it in
-place (see `optim.adamw`) and returns it with its metrics. The whole
+place (see `optim.adamw`) and returns it with its metrics. Since an
+update in place cannot be dropped afterwards, a step whose loss or
+gradient norm is not finite makes none: it leaves the state as it was
+and reports a NaN loss, so that the runtime loop's NaN policy sees it
+('skip' then keeps the state of the step before, as the reference's
+does). That check reads one flag back before the update. The whole
 step, backward and optimizer included, runs under `full_f32()`, so that
 no float32 product of the backward falls to TF32.
 """
@@ -84,10 +89,15 @@ def make_train_step(cfg, tcfg):
         with full_f32():
             loss, grads = loss_and_grads(model, cfg, tcfg, batch)
             lr = schedule(state['step']).to(loss.device)
+            gnorm = adamw.global_norm(grads)
+            if not bool(torch.isfinite(loss) & torch.isfinite(gnorm)):
+                return state, {'loss': torch.full_like(loss, float('nan')),
+                               'gnorm': gnorm, 'lr': lr}
             _, opt, gnorm = adamw.apply(
                 grads, state['opt'], dict(model.named_parameters()), lr=lr,
                 beta1=tcfg.beta1, beta2=tcfg.beta2, eps=tcfg.eps,
-                weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip)
+                weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
+                gnorm=gnorm)
         state['opt'] = opt
         state['step'] = state['step'] + 1
         return state, {'loss': loss, 'gnorm': gnorm, 'lr': lr}

@@ -926,3 +926,107 @@ def test_top_k_tie_rule_on_the_card(cuda_device):
                                       np.argsort(-bs[0, :len(X)],
                                                  kind='stable')[:10])
         np.testing.assert_array_equal(bs[0, :len(X)], s)
+
+
+# ------------------------------------------------ incremental retraining
+
+
+def _ordinal_queries(m, n_feat, seed, q_rows=16, q0=0):
+    """Five grades in queries of q_rows consecutive rows, ids from q0."""
+    ds = ordinal_like(m=m, m_test=16, n=n_feat, seed=seed)
+    return ds.X, ds.y, q0 + np.arange(m) // q_rows
+
+
+def test_refit_on_the_card_matches_the_cpu(cuda_device):
+    """fit then a ledger refit with engine='pallas' on the card (grouped
+    queries, so the counts go through the rank-counts kernel) reaches
+    the CPU's objective within eps."""
+    X, y, g = _ordinal_queries(2048, 16, 3)
+    Xd, yd, gd = _ordinal_queries(256, 16, 4, q0=1000)
+    out = {}
+    for dev in (cuda_device, 'cpu'):
+        svm = RankSVM(eps=1e-3, engine='pallas', device=dev).fit(X, y, g)
+        RC.RANK_COUNTS.launches = 0
+        rep = svm.refit(Xd, yd, gd, mode='ledger')
+        assert rep.mode == 'ledger' and rep.fit.converged
+        if dev != 'cpu':
+            assert RC.RANK_COUNTS.launches >= rep.n_planes + 1
+        out[str(dev)] = rep.fit.objective
+    assert abs(out[str(cuda_device)] - out['cpu']) <= 1e-3
+
+
+@pytest.mark.parametrize('queries,rows,layout', [
+    (2048, 128, 'runs'), (4096, 64, 'shuffled'), (3000, 37, 'runs')])
+def test_grouped_rank_counter_on_the_card_equals_the_tree(
+        queries, rows, layout, cuda_device):
+    """The grouped 'pallas' counter on the card (offset scores through
+    the rank-counts kernel, cross-query pairs subtracted,
+    `core.counts._grouped_rank_counter`) against the grouped tree on the
+    same scores, at thousands of queries: wide scores and scores with
+    ties on the margin, a batch of both too; (c, d) bit-equal, one
+    kernel launch a row."""
+    m = queries * rows
+    rng = np.random.default_rng(queries)
+    y = rng.integers(0, 5, size=m).astype(np.float32)
+    g = np.arange(m) // rows
+    if layout == 'shuffled':
+        g = rng.permutation(g)
+    p = (rng.normal(size=m) * 30).astype(np.float32)
+    q = (rng.integers(-8, 9, size=m) * 0.5).astype(np.float32)
+    yd, gd = (torch.as_tensor(a, device=cuda_device) for a in (y, g))
+    kernel = TC.make_counter(yd, gd, engine='pallas')
+    tree = TC.make_counter(yd, gd, engine='tree')
+    for s in (p, q, np.stack([p, q])):
+        sd = torch.as_tensor(s, device=cuda_device)
+        before = RC.RANK_COUNTS.launches
+        c, d = kernel(sd)
+        assert RC.RANK_COUNTS.launches - before == (
+            1 if sd.dim() == 1 else sd.shape[0])
+        ct, dt = tree(sd)
+        assert torch.equal(c, ct) and torch.equal(d, dt)
+
+
+def test_bundle_state_checkpoint_restores_on_the_card(cuda_device,
+                                                     tmp_path):
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core import bmrm as TB
+    st = TB.init_bundle_state(136, 64, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    st = st._replace(A=torch.randn(64, 136, generator=g,
+                                   device=cuda_device),
+                     n_active=torch.tensor(7, dtype=torch.int32,
+                                           device=cuda_device))
+    save(str(tmp_path), 1, st)
+    out, _ = restore(str(tmp_path), like=TB.init_bundle_state(
+        136, 64, device='meta'), device=cuda_device)
+    for f in TB.BundleState._fields:
+        a, b = getattr(st, f), getattr(out, f)
+        assert b.is_cuda and a.dtype == b.dtype and torch.equal(a, b), f
+
+
+def test_resumed_chunk_loop_is_bit_identical_on_the_card(cuda_device,
+                                                         tmp_path):
+    from repro_torch.core import bmrm as TB
+    from repro_torch.core import oracle as TO
+    from repro_torch.core.incremental import refit_chunk_step
+    from repro_torch.runtime import LoopConfig, SimulatedPreemption, run
+    X, y, g = _ordinal_queries(4096, 16, 5)
+    orc = TO.make_oracle(X, y, g, engine='pallas', device=cuda_device)
+    step = refit_chunk_step(orc, lam=1e-3, eps=1e-4, sync_every=4)
+
+    def init_fn(device):
+        return TB.init_bundle_state(16, 64, device=device)
+
+    def loop(name, **kw):
+        lc = LoopConfig(total_steps=8, ckpt_dir=str(tmp_path / name),
+                        ckpt_every=2, async_ckpt=False)
+        return run(step, init_fn, lambda s: None, lc, device=cuda_device,
+                   **kw)
+
+    state_a, _ = loop('a')
+    with pytest.raises(SimulatedPreemption):
+        loop('b', fail_at=5)
+    state_b, rep_b = loop('b')
+    assert rep_b.resumed_from == 4
+    for f in TB.BundleState._fields:
+        assert torch.equal(getattr(state_a, f), getattr(state_b, f)), f

@@ -312,7 +312,10 @@ def test_duplicate_lambdas_and_estimator_left_at_last_lambda():
     np.testing.assert_allclose(pts[0].w, pts[2].w, rtol=1e-5, atol=1e-7)
     assert svm.lam == 1e-2 and svm.report_.solver == 'vmap'
     np.testing.assert_array_equal(svm.w_, pts[-1].w)
-    assert svm.incremental_ is None
+    # the refit handle comes from the last lambda's state, as in the
+    # reference
+    inc = svm.incremental_
+    assert inc.ledger.n_planes == int(inc.state.n_active) > 0
     assert svm.objective(X, y) == pytest.approx(
         ref_fit_objective(X, y, None, 'hinge', 1e-2, svm.w_), rel=1e-6)
 

@@ -142,14 +142,17 @@ def test_sync_every_auto_and_unported_entry_points():
     data = synthetic.ordinal_like(m=256, m_test=64, n=8, seed=5)
     svm = RankSVM(eps=1e-3, sync_every='auto', solver='device',
                   device='cpu').fit(data.X, data.y)
-    assert svm.report_.converged and svm.incremental_ is None
+    assert svm.report_.converged
+    assert svm.incremental_ is not None and svm.incremental_.ledger
     # the regularization path is ported (tests/test_torch_path.py): a
-    # one-lambda path is a fit at that lambda
+    # one-lambda path is a fit at that lambda, and leaves a refit handle
     (point,) = svm.path(data.X, data.y, [1e-3], mode='sequential')
     assert point.lam == 1e-3 and point.report.converged
-    assert svm.incremental_ is None
-    with pytest.raises(NotImplementedError, match='Queue 1 item 11'):
-        svm.refit(data.X, data.y)
+    assert svm.incremental_.ledger.n_planes > 0
+    # incremental refits are ported (tests/test_torch_incremental.py)
+    rep = svm.refit(data.X_test, data.y_test)
+    assert rep.mode == 'ledger' and rep.fit.converged
+    assert svm.incremental_.store.m == len(data.y) + len(data.y_test)
     with pytest.raises(ValueError, match='unknown solver'):
         RankSVM(solver='gpu', device='cpu')
 
@@ -181,10 +184,15 @@ def test_port_imports_neither_jax_nor_the_reference():
             'repro_torch.data.sparse, repro_torch.data.rowblocks, '
             'repro_torch.data.synthetic, repro_torch.core.joachims, '
             'repro_torch.core.bmrm, repro_torch.serve, '
-            'repro_torch.serve.scorer, repro_torch.serve.batching; '
+            'repro_torch.serve.scorer, repro_torch.serve.batching, '
+            'repro_torch.core.incremental, repro_torch.checkpoint, '
+            'repro_torch.checkpoint.store, repro_torch.runtime, '
+            'repro_torch.runtime.loop; '
             "assert 'jax' not in sys.modules, 'the port pulled in jax'; "
             "assert 'repro' not in sys.modules, "
-            "'the port pulled in the JAX package'")
+            "'the port pulled in the JAX package'; "
+            "assert 'msgpack' not in sys.modules, "
+            "'the port pulled in msgpack'")
     subprocess.run([sys.executable, '-c', code, src], check=True,
                    timeout=120)
 

@@ -22,7 +22,6 @@ torch = pytest.importorskip('torch')
 
 from torch_parity import torch_one_thread  # noqa: E402,F401
 from torch_train_parity import check_pair, step_pair  # noqa: E402
-from repro_torch.launch import train as train_cli  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..', 'src')
 
@@ -55,10 +54,3 @@ def test_train_cli_prints_step_and_done_lines(objective):
     losses = [float(ln.split('loss')[1].split()[0]) for ln in steps]
     assert all(0 < x < 100 for x in losses)
     assert lines[-1].startswith('done: 3 steps in ')
-
-
-@pytest.mark.parametrize('flag', ['--ckpt-dir', '--ckpt-every'])
-def test_train_cli_refuses_checkpoints(flag):
-    with pytest.raises(NotImplementedError, match='item 11'):
-        train_cli.main(['--arch', 'rwkv6-3b', '--reduced', '--device', 'cpu',
-                        flag, '5'])
