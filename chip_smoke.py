@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA H100: RankSVM training
 through the counting kernels, under each of its three losses, along a
 regularization path, incrementally retrained and resumed from
-checkpoints, and RankSVM serving; RWKV-6 serving through the WKV forward
+checkpoints, split over a mesh of ranks, and RankSVM serving; RWKV-6 serving through the WKV forward
 kernel, and RWKV-6 training through both WKV kernels.
 
     python3 chip_smoke.py [--seed 0]
@@ -158,7 +158,26 @@ line; any failure ends the run with a non-zero exit code:
            `revalidate_seconds`, `n_planes`, the kernel's launches in
            revalidation and in the solves, and the phase's peak memory
            above its start.
-15. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
+15. sharded the sharded oracle (`method='sharded'`, `core/distributed.py`)
+           on a one-rank NCCL group at the main cell's size: every
+           variant ('base', 'opt') and engine ('tree', 'pallas'),
+           ungrouped and in 8192 queries of 128 rows, one call's counts
+           bit-equal to the tree's on the same bf16 scores, the
+           rank-counts kernel once a call under 'pallas', loss and
+           subgradient within the reference's bf16 bars of the fused
+           tree oracle (loss 2e-2, cosine > 0.99); `RankSVM(method=
+           'sharded', engine='pallas').fit` converged with J within 2e-2
+           (relative, the reference's bar for a sharded fit against the
+           tree) of the main fit's; engine='auto' at m = 4096 through the
+           pairwise kernel; reuters_1m through the CSR slot layout and
+           the tree (one call's parts, two calls bit-equal, a fit within
+           2e-2 of the resident fit's J); `compressed_mean` on the card
+           bit-equal to the CPU. Then four gloo ranks sharing the card
+           (mesh data 2 x model 2, each a spawned process drawing the main
+           data from --seed): counts bit-equal to the one-rank run, loss
+           and a within 1e-6, every rank's w the same after 20 bundle
+           steps (three chunks of 8: 24); each rank's peak memory.
+16. lm      RWKV-6 serving at the full rwkv6-3b width and depth (32
            layers, d = 2560, 40 heads of 64, d_ff = 8960, vocab 65536),
            seeded random weights made on the card, wkv_impl='kernel':
            prefill of B = 8 prompts of T = 4096 tokens (a cut of the
@@ -172,7 +191,7 @@ line; any failure ends the run with a non-zero exit code:
            prefill tokens/s, decode ms per token, the kernel's ms per
            call, and profiler windows over a prefill and decode steps.
            It releases its model before the next phase.
-16. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
+17. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
            weights as in lm, wkv_impl='kernel', remat='layer', AdamW
            (f32 master, m, v): first the gradients at B = 1, T = 256, the
            kernel route against the scan route on the same weights, every
@@ -189,7 +208,7 @@ line; any failure ends the run with a non-zero exit code:
            kernels' share of its device time), and both WKV kernels' times
            at the training shape (N = 160; the forward writing
            boundaries).
-17. time   where an iteration's time goes at the main shapes (CUDA
+18. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
            bundle steps (device busy share, device operations per step).
@@ -277,6 +296,18 @@ CHECK_BATCH, CHECK_LEN = 2, 256
 TRAIN_BATCH, TRAIN_LEN = 4, 4096
 TRAIN_LM_STEPS, TRAIN_RANK_STEPS = 3, 2
 GRAD_BATCH, GRAD_LEN = 1, 256
+# The sharded oracle (sharded phase): the four-rank mesh that shares the
+# card ('data' 2 x 'model' 2, gloo), its short fit, the bars of the
+# reference's bf16 oracle against the tree (tests/test_sharded_solver.py:
+# loss rel and abs 2e-2, cosine > 0.99; a sharded fit's J rel 2e-2), and
+# the rows of the 'auto' cut that reaches the pairwise kernel.
+SHARDED_MESH, SHARDED_FIT_ITER = (2, 2), 20
+SHARDED_LOSS_BAR, SHARDED_COS_BAR, SHARDED_J_REL = 2e-2, 0.99, 2e-2
+SHARDED_AUTO_M = 4096
+# Loss and a of the four ranks against the one-rank run: their float64
+# sums round once to float32, so they agree unless a sum lands within
+# 2^-53 of a float32 rounding boundary; this bar allows a few ulps.
+SHARDED_RANK_REL = 1e-6
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 F32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 
@@ -2427,6 +2458,326 @@ def _wkv_bwd_row(ctx, step_seconds, n_layers):
                 share_of_train_step_layer=ms * n_layers / (1e3 * step_seconds))
 
 
+def _bf16_bars(torch, loss_s, a_s, loss_r, a_r):
+    """The reference's bf16 bars of a sharded call against the tree's."""
+    loss_s, loss_r = float(loss_s), float(loss_r)
+    a_s, a_r = a_s.double(), a_r.double()
+    cos = float(a_s @ a_r / (a_s.norm() * a_r.norm() + 1e-12))
+    ok = (abs(loss_s - loss_r) <= SHARDED_LOSS_BAR * (1 + abs(loss_r))
+          and cos > SHARDED_COS_BAR)
+    return ok, dict(loss=loss_s, loss_tree=loss_r, cosine=cos)
+
+
+def _sharded_calls(ctx, mesh, X, y, g, w):
+    """Every variant and engine on the main data, ungrouped and in queries
+    of QUERY_ROWS rows, on the one-rank NCCL mesh: one call's counts
+    against the tree's on the same bf16 scores, the launches, the bf16
+    bars against the fused tree oracle, ms per call."""
+    torch = ctx['torch']
+    from repro_torch.core import counts as TC
+    from repro_torch.core.oracle import GroupedOracle, TreeOracle, make_oracle
+    out = {}
+    for groups in (None, g):
+        fused = (TreeOracle(X, y, device=ctx['dev']) if groups is None
+                 else GroupedOracle(X, y, groups, device=ctx['dev']))
+        loss_r, a_r = fused.loss_and_subgrad(w)
+        del fused
+        for variant in ('base', 'opt'):
+            for engine in ('tree', 'pallas'):
+                o = make_oracle(X, y, groups, method='sharded', mesh=mesh,
+                                variant=variant, engine=engine)
+                _reset_counts()
+                c, d = o.rank_counts(w)
+                torch.cuda.synchronize()
+                launches = _counts()['rank_counts']
+                p = o._scores(*o._args, w)
+                want = (TC.counts_fused(p, y) if groups is None
+                        else TC.counts_grouped_fused(p, y, groups))
+                key = (f'{"grouped" if groups is not None else "pool"}/'
+                       f'{variant}/{engine}')
+                check(torch.equal(c, want[0]) and torch.equal(d, want[1]),
+                      f'sharded {key}: counts differ from the tree on the '
+                      'same bf16 scores')
+                check(launches == (1 if engine == 'pallas' else 0),
+                      f'sharded {key}: {launches} rank-counts launches in '
+                      'one call')
+                ok, bars = _bf16_bars(torch, *o.loss_and_subgrad(w), loss_r,
+                                      a_r)
+                check(ok, f'sharded {key} outside the bf16 bars: {bars}')
+                out[key] = dict(counts_equal_tree=True, launches=launches,
+                                call_ms=time_ms(
+                                    torch, lambda: o.loss_and_subgrad(w), 3),
+                                **bars)
+                del o, c, d, p, want
+    return out
+
+
+def _sharded_split(ctx, o, w):
+    """CUDA-event ms of one sharded call and of its three parts."""
+    torch = ctx['torch']
+    p = o._scores(*o._args, w)
+    c, d = o._count(p)
+    v = (c - d).float() / o._np
+    return dict(
+        call_ms=time_ms(torch, lambda: o.loss_and_subgrad(w), 3),
+        matvec_ms=time_ms(torch, lambda: o._scores(*o._args, w), 5),
+        counting_ms=time_ms(torch, lambda: o._count(p), 3),
+        transpose_ms=time_ms(torch, lambda: o._transpose(*o._args, v), 5))
+
+
+def _sharded_rank(rank, world, tmp, seed, m, device):
+    """One of the ranks that share the card: the main data (m rows) drawn
+    on `device` from `seed` (bit-equal to the main phase's), a 'data' 2 x
+    'model' 2 mesh over gloo, the one-rank run's calls and a short fit;
+    its results are saved under `tmp`."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    on_card = dev.type == 'cuda'
+    if on_card:
+        dev = torch.device('cuda', dev.index or 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group('gloo', init_method=f'file://{tmp}/store',
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        from repro_torch.core.bmrm import bmrm
+        from repro_torch.core.oracle import make_oracle
+        from repro_torch.launch.mesh import make_mesh
+        X, y, _, _ = _mslr_draw(torch, m, seed, dev)
+        w = torch.load(os.path.join(tmp, 'w.pt')).to(dev)
+        mesh = make_mesh(SHARDED_MESH, ('data', 'model'), device=dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        out = dict(coords=mesh.coords)
+        for key, groups, variant, engine in (
+                ('pool/opt/tree', None, 'opt', 'tree'),
+                ('grouped/base/pallas',
+                 torch.arange(m, device=dev) // QUERY_ROWS, 'base',
+                 'pallas')):
+            o = make_oracle(X, y, groups, method='sharded', mesh=mesh,
+                            variant=variant, engine=engine)
+            c, d = o.rank_counts(w)
+            loss, a = o.loss_and_subgrad(w)
+            out[key] = dict(rows=o.block.rows, c=c.cpu(), d=d.cpu(),
+                            loss=float(loss), a=a.cpu())
+            del o
+        o = make_oracle(X, y, method='sharded', mesh=mesh, engine='pallas')
+        del X
+        t0 = time.perf_counter()
+        res = bmrm(o, lam=LAM, eps=EPS, max_iter=SHARDED_FIT_ITER,
+                   solver='device')
+        out['fit'] = dict(w=res.w, iterations=res.stats.iterations,
+                          seconds=time.perf_counter() - t0)
+        out['peak_memory'] = (torch.cuda.max_memory_allocated() if on_card
+                              else None)
+        torch.save(out, os.path.join(tmp, f'rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_four_ranks(ctx, ones, w_fit):
+    """SHARDED_MESH's ranks on the card, each a process of its own, held
+    to the one-rank run: counts bit for bit, loss and a within
+    SHARDED_RANK_REL; after SHARDED_FIT_ITER bundle steps every rank's w
+    the same bit for bit."""
+    import multiprocessing
+    import tempfile
+    torch = ctx['torch']
+    world = SHARDED_MESH[0] * SHARDED_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(ctx['sharded_w'].cpu(), os.path.join(tmp, 'w.pt'))
+        mp = multiprocessing.get_context('spawn')
+        procs = [mp.Process(target=_sharded_rank,
+                            args=(r, world, tmp, ctx['seed'], M,
+                                  str(ctx['dev'])))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        check(all(p.exitcode == 0 for p in procs),
+              f'rank exit codes {[p.exitcode for p in procs]}')
+        ranks = [torch.load(os.path.join(tmp, f'rank{r}.pt'),
+                            weights_only=False) for r in range(world)]
+    out = dict(mesh=dict(zip(('data', 'model'), SHARDED_MESH)),
+               backend='gloo', tensors_on=str(ctx['dev']), host_staged=False,
+               seconds=wall, peak_memory=[r['peak_memory'] for r in ranks])
+    for key, (c1, d1, loss1, a1) in ones.items():
+        worst = 0.0
+        for r in ranks:
+            got = r[key]
+            r0, r1 = got['rows']
+            check(torch.equal(got['c'], c1[r0:r1].cpu())
+                  and torch.equal(got['d'], d1[r0:r1].cpu()),
+                  f'four ranks, {key}: counts of rank {r["coords"]} differ '
+                  'from the one-rank run')
+            scale = float(a1.abs().max())
+            err = max(abs(got['loss'] - float(loss1)) / abs(float(loss1)),
+                      float((got['a'] - a1.cpu()).abs().max()) / scale)
+            worst = max(worst, err)
+        check(worst <= SHARDED_RANK_REL,
+              f'four ranks, {key}: loss or a {worst:.3g} off the one-rank '
+              'run')
+        out[key] = dict(counts_equal_one_rank=True, worst_rel_err=worst,
+                        loss_bits_equal=all(
+                            r[key]['loss'] == float(loss1) for r in ranks),
+                        a_bits_equal=all(torch.equal(r[key]['a'], a1.cpu())
+                                         for r in ranks))
+    ws = [r['fit']['w'] for r in ranks]
+    check(all((w == ws[0]).all() for w in ws),
+          'four ranks ended the short fit with different w')
+    out['fit'] = dict(iterations=ranks[0]['fit']['iterations'],
+                      seconds=[r['fit']['seconds'] for r in ranks],
+                      w_equal_on_every_rank=True,
+                      w_equal_one_rank=bool((ws[0] == w_fit).all()))
+    return out
+
+
+def phase_sharded(ctx):
+    """The sharded oracle on the card: one rank of a real NCCL group at
+    the main cell's size (every variant and engine, a fit) and at the
+    reuters_1m shape (CSR, a fit), the 'auto' engine's pairwise kernel,
+    the compressed mean, and four gloo ranks sharing the card."""
+    torch, dev = ctx['torch'], ctx['dev']
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import counts as TC
+    from repro_torch.core.bmrm import bmrm
+    from repro_torch.core.oracle import make_oracle
+    from repro_torch.core.ranksvm import RankSVM
+    from repro_torch.distributed import compressed_mean
+    from repro_torch.launch.mesh import Mesh, make_mesh
+    X, y = ctx['X'], ctx['y']
+    g = torch.arange(M, device=dev) // QUERY_ROWS
+    w = torch.as_tensor(ctx['w_main'], dtype=torch.float32, device=dev)
+    ctx['sharded_w'] = w
+    res = dict(card=_card(), m=M, n=N_FEATURES, queries=M // QUERY_ROWS)
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group('nccl', init_method=f'file://{tmp}/store',
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ('data', 'model'), device=dev)
+        res['one_rank'] = dict(backend=mesh.backend, world=1)
+        res['calls'] = _sharded_calls(ctx, mesh, X, y, g, w)
+        ones = {}
+        for key, groups, variant, engine in (
+                ('pool/opt/tree', None, 'opt', 'tree'),
+                ('grouped/base/pallas', g, 'base', 'pallas')):
+            o = make_oracle(X, y, groups, method='sharded', mesh=mesh,
+                            variant=variant, engine=engine)
+            ones[key] = (*o.rank_counts(w), *o.loss_and_subgrad(w))
+        o = make_oracle(X, y, method='sharded', mesh=mesh, engine='pallas')
+        w_fit = bmrm(o, lam=LAM, eps=EPS, max_iter=SHARDED_FIT_ITER,
+                     solver='device').w
+        res['split'] = _sharded_split(ctx, o, w)
+        del o
+        # the fit through the estimator, against the main fit's J
+        torch.cuda.synchronize()
+        _reset_counts()
+        svm = RankSVM(lam=LAM, eps=EPS, method='sharded', engine='pallas',
+                      max_iter=MAX_ITER, mesh=mesh).fit(X, y)
+        torch.cuda.synchronize()
+        rep, launches = svm.report_, _counts()['rank_counts']
+        j = svm.objective(X, y)
+        check(rep.converged and abs(j - ctx['objective_main'])
+              <= SHARDED_J_REL * abs(ctx['objective_main']),
+              f'sharded fit J {j} (converged {rep.converged}) against the '
+              f'main fit\'s {ctx["objective_main"]}')
+        check(launches >= rep.iterations,
+              f'{launches} rank-counts launches in {rep.iterations} '
+              'iterations of the sharded fit')
+        res['fit'] = dict(_fit_row(rep), objective_at_w=j,
+                          objective_main=ctx['objective_main'],
+                          launches=launches)
+        del svm
+        # the 'auto' engine at a gathered m the pairwise kernel takes
+        Xa, ya = X[:SHARDED_AUTO_M], y[:SHARDED_AUTO_M]
+        o = make_oracle(Xa, ya, method='sharded', mesh=mesh, engine='auto')
+        _reset_counts()
+        c, d = o.rank_counts(w)
+        torch.cuda.synchronize()
+        pw = _counts()['pairwise']
+        want = TC.counts_fused(o._scores(*o._args, w), ya)
+        check(pw == 1 and torch.equal(c, want[0])
+              and torch.equal(d, want[1]),
+              f"engine='auto' at m = {SHARDED_AUTO_M}: {pw} pairwise "
+              'launches, or counts not the tree\'s')
+        res['auto'] = dict(m=SHARDED_AUTO_M, pairwise_launches=pw,
+                           counts_equal_tree=True)
+        del o
+        res['reuters'] = _sharded_reuters(ctx, mesh)
+        # the compressed mean on the card against the CPU, bit for bit
+        gen = torch.Generator().manual_seed(ctx['seed'])
+        cpu_mesh = Mesh({'data': 1, 'model': 1}, {'data': 0, 'model': 0},
+                        {}, 'cpu')
+        err_c = err_d = None
+        for _ in range(3):
+            tree = {'w': torch.randn(32, 16, generator=gen),
+                    'b': torch.randn(7, generator=gen)}
+            mean_c, err_c = compressed_mean(tree, cpu_mesh, 'data', err_c)
+            mean_d, err_d = compressed_mean(
+                {k: v.to(dev) for k, v in tree.items()}, mesh, 'data', err_d)
+            for k in tree:
+                check(torch.equal(mean_d[k].cpu(), mean_c[k])
+                      and torch.equal(err_d[k].cpu(), err_c[k]),
+                      f'compressed_mean on the card != the CPU ({k})')
+        res['compressed_mean'] = dict(steps=3, bits_equal_cpu=True)
+    finally:
+        dist.destroy_process_group()
+    res['four_ranks'] = _sharded_four_ranks(ctx, ones, w_fit)
+    return res
+
+
+def _sharded_reuters(ctx, mesh):
+    """reuters_1m (the sparse phase's data) through the CSR sharded oracle
+    with the tree: one call's parts, and a fit against the resident tree
+    fit's J."""
+    torch = ctx['torch']
+    from repro_torch.core.oracle import make_oracle
+    from repro_torch.core.ranksvm import RankSVM
+    data = ctx['reuters']
+    X, y = data.X, data.y
+    t0 = time.perf_counter()
+    o = make_oracle(X, y, method='sharded', mesh=mesh)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    check(o.name == 'sharded/csr', f'reuters_1m built {o.name}')
+    w = torch.as_tensor(ctx['w_sparse'], dtype=torch.float32,
+                        device=ctx['dev'])
+    a1 = o.loss_and_subgrad(w)[1]
+    check(torch.equal(a1, o.loss_and_subgrad(w)[1]),
+          'two sharded CSR calls differ')
+    out = dict(build_seconds=build, slot_bytes=sum(
+        t.numel() * t.element_size() for t in o._args),
+        **_sharded_split(ctx, o, w))
+    del o
+    torch.cuda.synchronize()
+    _reset_counts()
+    svm = RankSVM(lam=SPARSE_LAM, eps=EPS, method='sharded',
+                  max_iter=MAX_ITER, mesh=mesh).fit(X, y)
+    rep = svm.report_
+    j = svm.objective(X, y)
+    check(rep.converged and abs(j - ctx['sparse_objective'])
+          <= SHARDED_J_REL * abs(ctx['sparse_objective']),
+          f'sharded reuters_1m fit J {j} (converged {rep.converged}) '
+          f'against the resident tree fit\'s {ctx["sparse_objective"]}')
+    check(_counts()['rank_counts'] == 0,
+          'reuters_1m (r ~= m) reached the rank-counts kernel')
+    out['fit'] = dict(_fit_row(rep), objective_at_w=j,
+                      objective_resident=ctx['sparse_objective'])
+    return out
+
+
 def phase_time(ctx):
     """Per-iteration breakdown at the main shapes, by CUDA events."""
     torch, dev = ctx['torch'], ctx['dev']
@@ -2544,7 +2895,8 @@ PHASES = (('build', phase_build), ('parity', phase_parity),
           ('path', phase_path), ('serve', phase_serve), ('auto', phase_auto), ('guard', phase_guard),
           ('sweep', phase_sweep), ('sparse', phase_sparse),
           ('stream', phase_stream), ('losses', phase_losses),
-          ('refit', phase_refit), ('lm', phase_lm),
+          ('refit', phase_refit), ('sharded', phase_sharded),
+          ('lm', phase_lm),
           ('train', phase_train), ('time', phase_time))
 
 

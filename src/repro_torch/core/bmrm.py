@@ -39,6 +39,16 @@ and a converged lambda's slice is frozen by its done flag; 'hybrid'
 runs a sequential prefix and broadcasts its planes to a batched tail.
 'auto' batches on the card and stays sequential on the CPU (where the
 reference measured the batched sweep 2-8x slower).
+
+**On a mesh of ranks** (`core.oracle.ShardedOracle`) every rank runs
+the same driver over a bundle state replicated on every rank: the
+oracle returns all of a, the same bits on every rank, so every rank
+solves the same QP and reads back the same gaps, and the ranks leave the
+loop at the same step with the same w. The reference instead splits the
+columns of the plane and iterate buffers (A, S) over 'model'
+(`repro.core.bmrm.bundle_state_shardings`), which saves memory only at
+pod-scale n (64 planes of 49152 features take 12.6 MB); that layout is
+not ported (ROADMAP.md Queue 1 item 12).
 """
 
 from __future__ import annotations

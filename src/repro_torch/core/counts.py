@@ -200,14 +200,27 @@ def _scatter_back(order, sorted_vals, m, dtype=torch.int32):
     return out
 
 
-def _half_counts(p, y):
-    """c_i = |{j : y_j > y_i  and  p_j < p_i + 1}| in O(m log^2 m)."""
+def _half_counts(p, y, rows=None):
+    """c_i = |{j : y_j > y_i  and  p_j < p_i + 1}| in O(m log^2 m).
+
+    `rows` = (r0, r1) answers only the queries of examples r0 .. r1-1, in
+    their order, against the tree of all m examples: the query split of
+    the sharded oracle's variant='opt' (`core.distributed`), where each
+    rank builds the whole tree from the gathered scores and answers its
+    own rows. Example i's query is its frontier (the sorted scores below
+    p_i + 1) and its threshold y_i, so the rows' counts need no
+    permutation back."""
     m = p.shape[0]
+    i32 = _index_dtype(_next_pow2(m)) == torch.int32
     ps, order = torch.sort(p, stable=True)
     ys = y[order]
-    frontier = torch.searchsorted(
-        ps, ps + 1.0, right=False,
-        out_int32=_index_dtype(_next_pow2(m)) == torch.int32)
+    if rows is not None:
+        r0, r1 = rows
+        frontier = torch.searchsorted(ps, p[r0:r1] + 1.0, right=False,
+                                      out_int32=i32)
+        del ps, order
+        return _prefix_count_greater(ys, frontier, y[r0:r1]).to(torch.int32)
+    frontier = torch.searchsorted(ps, ps + 1.0, right=False, out_int32=i32)
     c_sorted = _prefix_count_greater(ys, frontier, ys)
     return _scatter_back(order, c_sorted, m)
 

@@ -23,8 +23,13 @@ core, `_loss_and_coeffs`: the paper's hinge ('hinge', coefficients c - d
 over the N pairs), the position-weighted hinge ('poshinge', the weighted
 counts c~ - v d over the pair weight W) and the top-rank loss
 ('toppush', one sorted pass and no frequency vectors, over the anchored
-count N+). method='sharded' raises NotImplementedError naming its
-ROADMAP.md item.
+count N+).
+
+`ShardedOracle` (method='sharded') splits X over a mesh of ranks
+(`core.distributed`, `launch.mesh`): bf16 rows and columns of dense X,
+CSR slot rows, or a rank's own rows streamed from a row-block source;
+the counting pass runs on the gathered scores. It implements the hinge
+only.
 """
 
 from __future__ import annotations
@@ -39,16 +44,14 @@ from ..data import rowblocks as _rowblocks
 from ..data.rowblocks import (_validate_block_rows, _validate_prefetch,
                               resolve_prefetch)
 from ..kernels.platform import full_f32, resolve_device
+from ..launch.mesh import ROWS, default_mesh
 from . import counts as _counts
+from . import distributed as _dist
 
 f32 = torch.float32
 
 LOSSES = ('hinge', 'toppush', 'poshinge')
 METHODS = ('tree', 'pairs', 'auto', 'sharded', 'stream')
-
-_NOT_PORTED_METHOD = {
-    'sharded': 'ROADMAP.md Queue 1 item 12 (multi-device)',
-}
 
 
 def _validate_loss(loss: str) -> None:
@@ -311,9 +314,17 @@ class _ExactSum:
         q = (vals * self.scale[index % self.size]).round_()
         self.acc.index_add_(0, index, q)
 
-    def result(self):
-        """The sums as float32."""
-        return self.acc.view(self.replicas, self.size).sum(dim=0).div_(
+    def sums(self):
+        """The sums in fixed point: float64 integers, the replicas added.
+        Two accumulators made with the same bound over disjoint values
+        add exactly, so ranks that each sum their own rows can add these
+        and round once (`core.distributed`)."""
+        return self.acc.view(self.replicas, self.size).sum(dim=0)
+
+    def result(self, sums=None):
+        """The sums as float32: of this accumulator, or `sums` in its
+        fixed point."""
+        return (self.sums() if sums is None else sums).div_(
             self.scale).to(f32)
 
 
@@ -972,12 +983,220 @@ place of c - d and N for 'poshinge' and 'toppush'.
         return fn
 
 
+# --------------------------------------------------------- sharded oracle
+
+
+class ShardedOracle(RankOracle):
+    """The oracle split over a mesh of ranks: `core.distributed`'s bodies
+    (bf16 X split over rows and columns, gathered scores, the counting
+    engine on the gathered keys, DESIGN.md §5) behind the `RankOracle`
+    interface, so that `RankSVM(method='sharded')` and the BMRM drivers run
+    it as any other oracle. Every rank of the mesh builds the oracle from
+    the whole input and keeps its own block; each call is collective, and
+    every rank gets the same (loss, a), a whole on every rank.
+
+    `mesh` is a `launch.mesh.Mesh`; None takes `launch.mesh.default_mesh`
+    on `device` (every rank of the process group on 'data', or the 1 x 1
+    mesh without one). Group ids ride with y, and the counting pass folds
+    them in through the key offsets. The products run on bf16 values (the
+    pod-scale trade), so the counts see bf16-rounded scores and agree with
+    the float32 oracles to about 1e-2, which BMRM tolerates as an inexact
+    oracle.
+
+    Three feature layouts (DESIGN.md §9):
+      * dense (numpy or torch): the rank's rows and columns in bf16, the
+        dense body.
+      * CSR (`data.sparse.CSRMatrix`, scipy, a torch sparse tensor, a
+        `CSRBlockSource`), named 'sharded/csr': stays sparse, the rank's
+        rows padded to their widest row's slot count
+        (`core.distributed.csr_slot_arrays`), O(nnz) products.
+      * `np.memmap` or any other `RowBlockSource`, named
+        'sharded/stream': each rank reads only its own rows, `block_rows`
+        at a time, `prefetch` blocks ahead
+        (`core.distributed.assemble_row_sharded`), and X is never whole
+        on the host.
+
+    Rows are padded to a multiple of the row group: pad rows have zero
+    features, a group of their own and tied utilities, so they add no
+    pair, no count and nothing to the loss or a.
+
+    Like the fused oracles it runs on the device driver (`step_fn`, which
+    takes a batch of iterates for the path sweep too). The bundle state is
+    replicated on every rank (`core.bmrm`)."""
+
+    name = 'sharded'
+    device_resident = True
+    supports_device_solver = True
+    prefer_device_solver = True
+    supports_path_vmap = True
+
+    def __init__(self, X, y, groups=None, mesh=None, variant: str = 'base',
+                 engine: str = 'tree', block_rows: int | None = None,
+                 prefetch=None, loss: str = 'hinge', device=None):
+        # The loss gate first: an unsupported loss fails before anything
+        # below reads, pads or moves X.
+        _validate_loss(loss)
+        _dist.validate_sharded_loss(loss)
+        self.loss = loss
+        _counts._validate_engine(engine)
+        _validate_prefetch(prefetch)
+        if variant not in _dist.VARIANTS:
+            raise ValueError(f'unknown variant {variant!r}; expected one of '
+                             f'{_dist.VARIANTS}')
+        if mesh is not None and device is not None and \
+                torch.device(device).type != mesh.device.type:
+            raise ValueError(f'device={device!r} but the mesh is on '
+                             f'{mesh.device}')
+        self.variant, self.engine = variant, engine
+        y = _as_numpy(y, np.float32)
+        src = None
+        if isinstance(X, (np.memmap, _rowblocks.RowBlockSource)) and \
+                not isinstance(X, _rowblocks.CSRBlockSource):
+            src = _rowblocks.as_row_block_source(X)
+            layout = 'stream'
+            self.m, self.n = src.m, src.n
+        else:
+            if isinstance(X, _rowblocks.CSRBlockSource):
+                X = X._X                     # the layout-native CSR object
+            if _rowblocks.is_sparse_input(X):
+                X = _rowblocks.as_csr_matrix(X)
+                layout = 'csr'
+            else:
+                layout = 'dense'
+                if not torch.is_tensor(X):
+                    X = np.asarray(X)
+                if X.ndim != 2:
+                    raise ValueError('ShardedOracle features must be 2-D; '
+                                     f'got shape {tuple(X.shape)}')
+            self.m, self.n = map(int, X.shape)
+        if y.shape[0] != self.m:
+            raise ValueError(f'X has {self.m} rows but y has {y.shape[0]}')
+        if groups is not None:
+            groups = _validate_groups(_as_numpy(groups, None), self.m)
+            # ~1e-2 tolerance: the bf16 products already round the scores.
+            _warn_group_key_scale(groups, y, tol=1e-2, stacklevel=3)
+        self.n_pairs = _exact_pairs(y, groups)
+        if self.n_pairs == 0:
+            raise ValueError('training data induces no preference pairs')
+        self.norm = float(self.n_pairs)   # hinge only (the gate above)
+        # A pair bound of |c_i - d_i|: the largest group's size less one.
+        widest = (self.m if groups is None
+                  else int(np.bincount(groups).max())) - 1
+        self.mesh = mesh if mesh is not None else default_mesh(device)
+        self.device = self.mesh.device
+        msize = self.mesh.size('model')
+        if self.n % msize:
+            raise ValueError(
+                f"mesh 'model' axis of size {msize} does not divide the "
+                f'feature dim n={self.n}; pick a mesh whose model axis '
+                'divides n (or pad the features upstream)')
+        pad = (-self.m) % self.mesh.size(ROWS)
+        if pad:
+            y = np.concatenate([y, np.zeros(pad, np.float32)])
+            base = groups if groups is not None else np.zeros(self.m,
+                                                              np.int32)
+            groups = np.concatenate([base, np.full(pad, int(base.max()) + 1,
+                                                   np.int32)])
+        self.block = blk = _dist.rank_block(self.mesh, self.m + pad, self.n)
+        dev = self.device
+        yd = torch.as_tensor(y, device=dev)
+        gd = None if groups is None else torch.as_tensor(groups, device=dev)
+        self._count = _dist.make_rank_counter(blk, yd, gd, variant=variant,
+                                              engine=engine)
+        r0, r1 = blk.rows
+        lo, hi = min(r0, self.m), min(r1, self.m)   # the real rows
+        if layout == 'csr':
+            self.name = 'sharded/csr'
+            rows = X.row_slice(lo, hi)
+            data2, idx2 = _dist.csr_slot_arrays(
+                rows.data, rows.indices, rows.indptr, (hi - lo, self.n),
+                pad_rows=(r1 - r0) - (hi - lo))
+            replicas = max(1, min(RMATVEC_REPLICAS, self.m + pad,
+                                  (2**31 - 1) // max(self.n, 1)))
+            base = (np.arange(r0, r1, dtype=np.int64) % replicas) * self.n
+            slot = (idx2 + base[:, None]).astype(np.int32)
+            # The transpose's bound: column sums of |data| (the bf16
+            # values the products use) over every row of X.
+            vals = torch.from_numpy(np.asarray(X.data, np.float32)).to(
+                torch.bfloat16).to(torch.float64).abs().numpy()
+            col_abs = torch.as_tensor(
+                np.bincount(np.asarray(X.indices, np.int64), vals,
+                            minlength=self.n), device=dev)
+            bound = col_abs * (widest / self.n_pairs)
+            self._body = _dist.make_csr_oracle_body(self.mesh, blk,
+                                                    self._count, bound,
+                                                    replicas)
+            self._scores = functools.partial(_dist.csr_scores, n=self.n)
+            self._transpose = functools.partial(
+                _dist.csr_transpose, self.mesh, bound=bound,
+                replicas=replicas)
+            self._args = (
+                torch.from_numpy(data2).to(torch.bfloat16).to(dev),
+                torch.from_numpy(slot).to(dev))
+        else:
+            if layout == 'stream':
+                self.name = 'sharded/stream'
+                block_rows = _validate_block_rows(
+                    block_rows if block_rows is not None
+                    else DEFAULT_STREAM_BLOCK, 'ShardedOracle block_rows')
+                Xb = _dist.assemble_row_sharded(
+                    src, blk, dev, block_rows=min(block_rows, max(self.m, 1)),
+                    prefetch=prefetch)
+            else:
+                c0, c1 = blk.cols
+                part = X[lo:hi, c0:c1]
+                part = (part.detach() if torch.is_tensor(part)
+                        else torch.from_numpy(np.ascontiguousarray(part)))
+                # float64 input is rounded to float32 first, as the
+                # reference's inputs are, then to bf16.
+                Xb = torch.zeros((r1 - r0, c1 - c0), dtype=torch.bfloat16,
+                                 device=dev)
+                Xb[:hi - lo] = part.to(dev).to(f32).to(torch.bfloat16)
+            self._body = _dist.make_oracle_body(self.mesh, blk,
+                                                self._count)
+            self._scores = functools.partial(_dist.dense_scores, self.mesh,
+                                             blk)
+            self._transpose = functools.partial(_dist.dense_transpose,
+                                                self.mesh)
+            self._args = (Xb,)
+        self._np = torch.tensor(float(self.n_pairs), dtype=f32, device=dev)
+
+    def loss_and_subgrad(self, w):
+        """(R_emp(w), a): a device scalar and a (n,) on the oracle's
+        device, the same on every rank. Collective: every rank calls it
+        with the same w."""
+        w = torch.as_tensor(w if torch.is_tensor(w) else np.asarray(w),
+                            dtype=f32, device=self.device)
+        return self.step_fn()(w)
+
+    def step_fn(self):
+        """`w -> (loss, a)` over the rank's block, for the BMRM drivers; a
+        batch W (L, n) gives (L,) losses and (L, n) subgradients. The
+        closure holds the block's tensors, not the oracle."""
+        body, args, n_pairs = self._body, self._args, self._np
+
+        def fn(w):
+            return body(*args, w, n_pairs)
+
+        return fn
+
+    def rank_counts(self, w):
+        """(c, d) of the rank's rows at w, the counting pass of one call
+        on its own, for checks against another mesh or the tree.
+        Collective, as a call."""
+        w = torch.as_tensor(w if torch.is_tensor(w) else np.asarray(w),
+                            dtype=f32, device=self.device)
+        p = self._scores(*self._args, w)
+        return self._count(self.mesh.all_gather(p, ROWS, dim=-1))
+
+
 def make_oracle(X, y, groups=None, method: str = 'tree', *,
                 loss: str = 'hinge', engine: str | None = None,
                 pair_block: int = 2048, csr_rmatvec: str = 'auto',
                 memory_budget: float | None = None,
                 stream_block: int | None = None, prefetch=None,
-                device=None) -> RankOracle:
+                device=None, mesh=None,
+                variant: str = 'base') -> RankOracle:
     """Build the RankOracle for (X, y[, groups]) selected by `method`.
 
       method    oracle            features resident    counting engine
@@ -992,6 +1211,8 @@ def make_oracle(X, y, groups=None, method: str = 'tree', *,
                                                        rank-counts above;
                                                        the tree elsewhere
       'stream'  StreamingOracle   one block + O(m)     'auto'
+      'sharded' ShardedOracle     the rank's block     'tree' on the
+                                  (bf16, or CSR slots) gathered scores
 
     X is dense (numpy, torch), CSR (`data.sparse.CSRMatrix`, scipy, a
     torch sparse tensor), an `np.memmap` or a `data.rowblocks`
@@ -1012,17 +1233,28 @@ def make_oracle(X, y, groups=None, method: str = 'tree', *,
     counts_auto oracle, whose replicas the budget sizes. `stream_block`
     (rows) defaults to the budget-derived size (`_auto_stream_block`);
     `prefetch` (None/'auto' | int >= 0) is the streaming oracle's
-    read-ahead depth and is ignored by the fused oracles."""
+    read-ahead depth and is ignored by the fused oracles.
+
+    method='sharded' takes every layout (dense, CSR kept sparse, memmap
+    and row-block sources read rank by rank), `groups=`, `mesh=` (a
+    `launch.mesh.Mesh`; default `launch.mesh.default_mesh(device)`),
+    `variant=` ('base' | 'opt': the tree's queries split over the ranks)
+    and every engine, and the hinge only: another loss raises before X
+    is touched. `stream_block` and `prefetch` size its streamed reads."""
     if method not in METHODS:
         raise ValueError(f'unknown oracle method {method!r}; '
                          f'expected one of {METHODS}')
     _validate_loss(loss)
-    if method in _NOT_PORTED_METHOD:
-        raise NotImplementedError(f'method={method!r} is not ported yet: '
-                                  f'{_NOT_PORTED_METHOD[method]}')
+    if method == 'sharded':
+        _dist.validate_sharded_loss(loss)
     if engine is not None:
         _counts._validate_engine(engine)
     _validate_prefetch(prefetch)
+    if method == 'sharded':
+        return ShardedOracle(X, y, groups=groups, mesh=mesh, variant=variant,
+                             engine=engine if engine is not None else 'tree',
+                             block_rows=stream_block, prefetch=prefetch,
+                             loss=loss, device=device)
     stream_only = isinstance(X, (_rowblocks.RowBlockSource, np.memmap))
     if method == 'auto' and not stream_only and memory_budget is not None:
         if _rowblocks.projected_resident_gib(X) > float(memory_budget) or (
@@ -1039,7 +1271,8 @@ def make_oracle(X, y, groups=None, method: str = 'tree', *,
         raise ValueError(
             f"method={method!r} needs materialized features, but X is a "
             f'{type(X).__name__} row-block source; train it with '
-            "method='stream' (or 'auto', which streams such sources)")
+            "method='stream' or 'sharded' (or 'auto', which streams such "
+            'sources)')
     kw = dict(csr_rmatvec=csr_rmatvec, engine=engine, loss=loss,
               device=device, memory_budget=memory_budget)
     if groups is not None:

@@ -1,9 +1,9 @@
 """RankSVM estimator: TreeRSVM (the paper's method) and PairRSVM (baseline).
 
-The counterpart of `repro.core.ranksvm.RankSVM` for the slice that is
-ported: dense and CSR features, streamed features, the losses 'hinge'
-(the paper's), 'toppush' and 'poshinge' (DESIGN.md §12), methods
-'tree', 'pairs', 'auto' and 'stream', both BMRM drivers.
+The counterpart of `repro.core.ranksvm.RankSVM`: dense and CSR
+features, streamed features, the losses 'hinge' (the paper's), 'toppush'
+and 'poshinge' (DESIGN.md §12), methods 'tree', 'pairs', 'auto',
+'stream' and 'sharded', both BMRM drivers.
 `method=` picks the oracle (`core.oracle.make_oracle`), `engine=` its
 counting engine and `solver=` the BMRM driver (`core.bmrm`); the
 estimator itself touches no counting internals. The model trains on
@@ -20,8 +20,11 @@ and can hot-swap the new weights into a serving `WeightStore` or
 `RankingService` (DESIGN.md §11). The store holds the fit's features as
 given: a tensor on the card is neither copied nor moved.
 
-method='sharded' is not ported yet and raises NotImplementedError
-naming its ROADMAP.md item.
+method='sharded' splits the features over a mesh of ranks
+(`core.oracle.ShardedOracle`, `launch.mesh`): every rank of the process
+group builds the estimator and calls `fit` or `path` with the same
+arguments, and every rank ends with the same w. It trains the hinge
+only; another loss raises in `fit` before X is touched.
 """
 
 from __future__ import annotations
@@ -76,10 +79,10 @@ class RankSVM:
       lam: regularization weight of J(w) = R_emp(w) + lam ||w||^2.
       eps: BMRM termination gap. Below `core.bmrm.F32_EPS_FLOOR` the
         solver='auto' choice is the float64 host driver.
-      method: 'tree' | 'pairs' | 'auto' | 'stream' ('sharded' raises
-        NotImplementedError). 'auto' streams when `memory_budget` is set
-        and the projected fused residency exceeds it, and always for an
-        np.memmap or a row-block source.
+      method: 'tree' | 'pairs' | 'auto' | 'stream' | 'sharded'. 'auto'
+        streams when `memory_budget` is set and the projected fused
+        residency exceeds it, and always for an np.memmap or a row-block
+        source; 'sharded' splits X over `mesh` and trains the hinge only.
       loss: 'hinge' (the paper's pairwise hinge), 'toppush' (each
         anchored example against the best-scoring lower one) or
         'poshinge' (pairs weighted by the higher side's utility rank);
@@ -99,6 +102,10 @@ class RankSVM:
         int >= 0; 'auto' double-buffers memmap sources); results are
         bit-identical at any depth. Validated here, ignored by the fused
         oracles.
+      mesh: the `launch.mesh.Mesh` of method='sharded'; None takes
+        `launch.mesh.default_mesh` (every rank of the process group on
+        'data', or one rank). Its device is the model's when `device` is
+        not given.
       device: where the model trains, default 'cuda' (port only).
     """
 
@@ -110,7 +117,7 @@ class RankSVM:
                  memory_budget: float | None = None,
                  stream_block: int | None = None,
                  engine: str | None = None, prefetch=None,
-                 loss: str = 'hinge', device=None):
+                 loss: str = 'hinge', device=None, mesh=None):
         if method not in METHODS:
             raise ValueError(f'unknown method {method!r}; '
                              f'expected one of {METHODS}')
@@ -143,7 +150,9 @@ class RankSVM:
         _validate_prefetch(prefetch)    # fail at construction, not fit
         self.prefetch = prefetch
         self.verbose = verbose
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
         self.w_: np.ndarray | None = None
         self.report_: FitReport | None = None
         self.oracle_ = None
@@ -479,7 +488,8 @@ class RankSVM:
                            pair_block=self.pair_block,
                            memory_budget=self.memory_budget,
                            stream_block=self.stream_block,
-                           prefetch=self.prefetch, device=self.device)
+                           prefetch=self.prefetch, device=self.device,
+                           mesh=self.mesh)
 
     def _solve(self, oracle, state=None, w0=None):
         return bmrm(oracle, lam=self.lam, eps=self.eps,

@@ -12,8 +12,8 @@ the backward kernel from them; without, it writes no boundaries.
 Not ported from the reference's `ops.py`: the TPU's `bn` tile of
 sequences per grid step (here each sequence is split over blocks
 instead: `fwd_geometry`, `bwd_geometry`), and the mesh,
-`shard_map` and `pure_callback` stub of multi-device runs (ROADMAP Queue
-1 item 12).
+`shard_map` and `pure_callback` stub that only the dry-run's sharding
+rules reach (ROADMAP Queue 1 item 13(c)).
 """
 
 from __future__ import annotations

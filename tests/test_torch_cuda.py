@@ -5,8 +5,9 @@ tolerances below), a fit on the card against the same fit on the CPU,
 the sparse and streamed oracles on the card (the tree's memory, the
 device transpose-matvec, the streaming budget and its determinism), the
 loss axis (the weighted tree's memory, TopPush's coefficients, the
-r-level counts, the accumulator's budget), and the reduced RWKV-6
-prefill and train step on the card against the CPU.
+r-level counts, the accumulator's budget), the reduced RWKV-6 prefill
+and train step on the card against the CPU, and the sharded oracle on a
+one-rank NCCL group against the CPU.
 
 Every test here needs a CUDA device (Hopper, for the sm_90a kernels) and
 is marked `cuda`; without one it skips. This module imports neither JAX
@@ -1030,3 +1031,120 @@ def test_resumed_chunk_loop_is_bit_identical_on_the_card(cuda_device,
     assert rep_b.resumed_from == 4
     for f in TB.BundleState._fields:
         assert torch.equal(getattr(state_a, f), getattr(state_b, f)), f
+
+
+# ------------------------------------------------------- sharded oracle
+
+
+def _sharded_data(layout, m=20000):
+    """Dense MSLR-width rows with five grades, or tf-idf CSR rows with
+    real-valued utilities, from a seed."""
+    from repro_torch.data import random_tfidf
+    rng = np.random.default_rng(m)
+    if layout == 'csr':
+        X = random_tfidf(m, 4096, 20, seed=1)
+        y = rng.normal(size=m).astype(np.float32)
+        w = rng.normal(size=4096).astype(np.float32)
+    else:
+        X = rng.normal(size=(m, 136)).astype(np.float32)
+        y = rng.integers(0, 5, size=m).astype(np.float32)
+        w = rng.normal(size=136).astype(np.float32) * 0.1
+    return X, y, w
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """A one-rank NCCL process group on the card and its 1 x 1 mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group('nccl', init_method=f'file://{tmp_path}/store',
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ('data', 'model'), device=cuda_device)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize('layout', ['dense', 'csr'])
+def test_sharded_nccl_one_rank_equals_the_cpu(layout, nccl_mesh):
+    """The sharded oracle on a one-rank NCCL group on the card against the
+    same oracle on the CPU: counts bit-equal, loss and a within 1e-6 (the
+    float64 sums run in another order on the card)."""
+    from repro_torch.core.oracle import make_oracle
+    from repro_torch.launch.mesh import Mesh
+    X, y, w = _sharded_data(layout)
+    cpu_mesh = Mesh({'data': 1, 'model': 1}, {'data': 0, 'model': 0}, {},
+                    'cpu')
+    outs = []
+    for mesh in (nccl_mesh, cpu_mesh):
+        o = make_oracle(X, y, method='sharded', mesh=mesh, variant='opt')
+        assert o.device.type == mesh.device.type
+        outs.append([t.cpu() for t in (*o.rank_counts(w),
+                                       *o.loss_and_subgrad(w))])
+    (c, d, loss, a), (c1, d1, loss1, a1) = outs
+    assert torch.equal(c, c1) and torch.equal(d, d1)
+    assert abs(float(loss) - float(loss1)) <= 1e-6 * abs(float(loss1))
+    assert float((a - a1).abs().max()) <= 1e-6 * float(a1.abs().max())
+
+
+def test_sharded_grouped_pallas_launches_the_kernel_once_a_call(
+        cuda_device):
+    """Graded queries under engine='pallas' reach the rank-counts kernel
+    through the grouped counter (score offsets, cross-query pairs
+    subtracted): one launch a call, counts equal the tree engine's."""
+    from repro_torch.core.oracle import make_oracle
+    X, y, w = _sharded_data('dense')
+    g = np.arange(X.shape[0]) // 128
+    kern = make_oracle(X, y, g, method='sharded', engine='pallas')
+    tree = make_oracle(X, y, g, method='sharded', engine='tree')
+    for _ in range(3):
+        before = RC.RANK_COUNTS.launches
+        kern.loss_and_subgrad(w)
+        assert RC.RANK_COUNTS.launches - before == 1
+    before = RC.RANK_COUNTS.launches
+    c, d = kern.rank_counts(w)
+    assert RC.RANK_COUNTS.launches - before == 1
+    ct, dt = tree.rank_counts(w)
+    assert torch.equal(c, ct) and torch.equal(d, dt)
+
+
+def test_sharded_csr_transpose_is_deterministic_on_the_card(cuda_device):
+    """The CSR transpose sums in exact fixed point: two calls on the card
+    give the same bits, and the same bits as the CPU."""
+    from repro_torch.core.oracle import make_oracle
+    X, y, w = _sharded_data('csr')
+    card = make_oracle(X, y, method='sharded')
+    a1 = card.loss_and_subgrad(w)[1]
+    a2 = card.loss_and_subgrad(w)[1]
+    assert torch.equal(a1, a2)
+    # Twenty exact bf16 products a row add exactly in float64: the scores,
+    # and so the counts, are the CPU's, and the fixed-point sums are the
+    # same in any order.
+    cpu = make_oracle(X, y, method='sharded', device='cpu')
+    c, d = card.rank_counts(w)
+    c1, d1 = cpu.rank_counts(w)
+    assert torch.equal(c.cpu(), c1) and torch.equal(d.cpu(), d1)
+    assert torch.equal(a1.cpu(), cpu.loss_and_subgrad(w)[1])
+
+
+def test_compressed_mean_on_the_card_equals_the_cpu(cuda_device):
+    """Three error-feedback steps of the one-rank compressed mean on the
+    card and on the CPU, bit for bit (true division on both)."""
+    from repro_torch.distributed import compressed_mean
+    from repro_torch.launch.mesh import Mesh
+    gen = torch.Generator().manual_seed(0)
+    meshes = [Mesh({'data': 1}, {'data': 0}, {}, dev)
+              for dev in (cuda_device, 'cpu')]
+    errs = [None, None]
+    for _ in range(3):
+        tree = {'w': torch.randn(32, 16, generator=gen),
+                'b': torch.randn(7, generator=gen)}
+        outs = []
+        for i, mesh in enumerate(meshes):
+            out, errs[i] = compressed_mean(
+                {k: v.to(mesh.device) for k, v in tree.items()}, mesh,
+                'data', errs[i])
+            outs.append(out)
+        for k in tree:
+            assert torch.equal(outs[0][k].cpu(), outs[1][k])
+            assert torch.equal(errs[0][k].cpu(), errs[1][k])

@@ -119,17 +119,18 @@ def test_empirical_risk_and_ranking_error_match_jax_package(case):
 
 
 def test_unported_arguments_name_their_roadmap_item():
-    """method='sharded' names its item; streamed and sparse features
-    (Queue 1 item 9) and the losses 'toppush' and 'poshinge' (item 7)
-    are ported and build their oracles."""
+    """Every method and loss builds its oracle: method='sharded' (Queue 1
+    item 12) a `ShardedOracle`, streamed and sparse features (item 9)
+    and the losses 'toppush' and 'poshinge' (item 7) theirs."""
     X = np.eye(3)
     y = np.arange(3.0)
     for loss in ('toppush', 'poshinge'):
         o = TO.make_oracle(X, y, loss=loss, device='cpu')
         assert isinstance(o, TO.TreeOracle) and o.loss == loss
         assert o.name == f'tree/{loss}'
-    with pytest.raises(NotImplementedError, match='Queue 1 item 12'):
-        TO.make_oracle(X, y, method='sharded', device='cpu')
+    sharded = TO.make_oracle(X, y, method='sharded', device='cpu')
+    assert isinstance(sharded, TO.ShardedOracle)
+    assert sharded.name == 'sharded' and sharded.n_pairs == 3
     assert isinstance(TO.make_oracle(X, y, method='stream', device='cpu'),
                       TO.StreamingOracle)
     assert TO.make_oracle(torch.eye(3).to_sparse(), y,

@@ -187,7 +187,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             'repro_torch.serve.scorer, repro_torch.serve.batching, '
             'repro_torch.core.incremental, repro_torch.checkpoint, '
             'repro_torch.checkpoint.store, repro_torch.runtime, '
-            'repro_torch.runtime.loop; '
+            'repro_torch.runtime.loop, repro_torch.core.distributed, '
+            'repro_torch.launch.mesh, repro_torch.distributed, '
+            'repro_torch.distributed.compression; '
             "assert 'jax' not in sys.modules, 'the port pulled in jax'; "
             "assert 'repro' not in sys.modules, "
             "'the port pulled in the JAX package'; "

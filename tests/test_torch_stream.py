@@ -318,8 +318,10 @@ def test_make_oracle_dispatch_follows_the_reference(tmp_path):
             TO.make_oracle(src, y, method=method, device='cpu')
     with pytest.raises(ValueError, match='prefetch'):
         TO.make_oracle(X, y, method='stream', prefetch=-1, device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 12'):
-        TO.make_oracle(X, y, method='sharded', device='cpu')
+    for Xi in (mm, src):
+        sharded = TO.make_oracle(Xi, y, method='sharded', device='cpu')
+        assert isinstance(sharded, TO.ShardedOracle)
+        assert sharded.name == 'sharded/stream'
     g = np.zeros(X.shape[0], np.int32)
     g[::2] = 1
     assert TO.make_oracle(X, y, groups=g, method='stream',
