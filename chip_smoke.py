@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA H100: RankSVM training
 through the counting kernels, under each of its three losses, along a
 regularization path, incrementally retrained and resumed from
-checkpoints, split over a mesh of ranks, and RankSVM serving; RWKV-6 serving through the WKV forward
-kernel, and RWKV-6 training through both WKV kernels.
+checkpoints, split over a mesh of ranks, and RankSVM serving; RWKV-6
+serving through the WKV forward kernel, dense GQA attention serving
+(qwen2.5-3b; no kernel of the port lies on that path), and RWKV-6
+training through both WKV kernels.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -191,7 +193,28 @@ line; any failure ends the run with a non-zero exit code:
            prefill tokens/s, decode ms per token, the kernel's ms per
            call, and profiler windows over a prefill and decode steps.
            It releases its model before the next phase.
-17. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
+17. dense  dense GQA attention serving at the full qwen2.5-3b width and
+           depth (36 layers, d = 2048, 16 heads over 2 KV heads of 128,
+           d_ff = 11008, vocab 151936 padded to 152064, tied, QKV bias;
+           3.086e9 parameters), seeded weights made on the card with the
+           QKV biases drawn: prefill of B = 8 prompts of T = 4096 (a cut of
+           prefill_32k), the cache grown to decode_32k's 32768 positions
+           (`convert.pad_cache`, 9.66 GB), then 32 greedy decode steps,
+           each writing the cache in place (its storage must not change).
+           Logits finite; no kernel of the port launches. At B = 2, T =
+           256 prefill(T-1) + decode(1) against the full forward within
+           0.05 on the first two layers and within DENSE_FAULT_BAR over
+           all 36; the first two layers on the card against a CPU copy
+           within the CPU tests' bars. For the record, off the path:
+           `scaled_dot_product_attention` against the port's attention at
+           the prefill shape. Then internvl2-26b (256 image embeddings),
+           musicgen-medium (audio frames, in decode too) and
+           nemotron-4-340b (sq_relu, head_dim 192, untied head) at full
+           width and 2 layers, each through the same consistency check.
+           Prints prefill tokens/s, decode ms per token, peak memory,
+           profiler windows over a prefill and decode steps, beside the
+           card's name and power limit; releases each model.
+18. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
            weights as in lm, wkv_impl='kernel', remat='layer', AdamW
            (f32 master, m, v): first the gradients at B = 1, T = 256, the
            kernel route against the scan route on the same weights, every
@@ -208,7 +231,7 @@ line; any failure ends the run with a non-zero exit code:
            kernels' share of its device time), and both WKV kernels' times
            at the training shape (N = 160; the forward writing
            boundaries).
-18. time   where an iteration's time goes at the main shapes (CUDA
+19. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
            bundle steps (device busy share, device operations per step).
@@ -291,6 +314,19 @@ GROUPED_CALLS = 64
 # 32 x 32768), greedy decode steps, and the consistency checks' shape.
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 4096, 32
 CHECK_BATCH, CHECK_LEN = 2, 256
+# Dense-attention serving (dense phase): qwen2.5-3b at full width and
+# depth with the lm phase's prefill batch, length and decode steps, into
+# a cache of decode_32k's length; the other widths at 2 layers. Bars of
+# the CPU tests (tests/test_torch_dense_lm.py): prefill + decode against
+# the full forward within 0.05 (tests/test_models.py), logits card
+# against CPU within 3% in relative norm and 5% of the largest value,
+# layer 0's cache within 1% and 2% (the whole cache within the first).
+DENSE_ARCH, DENSE_CAPACITY = 'qwen2.5-3b', 32768
+DENSE_WIDTHS = ('internvl2-26b', 'musicgen-medium', 'nemotron-4-340b')
+DENSE_PD_BAR = 0.05
+DENSE_MODEL_BARS = dict(rel=0.03, peak=0.05)
+DENSE_CACHE_BARS = dict(rel=0.01, peak=0.02)
+DENSE_FAULT_BAR = 0.25
 # RWKV-6 training (train phase): batch and length (train_4k is 256 x
 # 4096), steps of each objective, and the gradient checks' shape.
 TRAIN_BATCH, TRAIN_LEN = 4, 4096
@@ -1989,6 +2025,18 @@ def _randomize_mixing(torch, model, g):
                                       device=u.device))
 
 
+def _cut(cfg, model, depth):
+    """The model cut to its first `depth` layers (the same weights, no
+    copy), with its config."""
+    from repro_torch.models import lm as LM
+    if depth >= cfg.n_layers:
+        return cfg, model
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    return cfg, LM.from_state_dict(cfg, {
+        k: v for k, v in model.state_dict().items()
+        if not k.startswith('layers.') or int(k.split('.')[1]) < depth})
+
+
 def _lm_consistency(ctx, model, cfg, g, depth):
     """Last-position logits (float32) of the model cut to its first
     `depth` layers (the same weights, no copy), at B = CHECK_BATCH,
@@ -1999,11 +2047,7 @@ def _lm_consistency(ctx, model, cfg, g, depth):
     torch = ctx['torch']
     from repro_torch.kernels.platform import full_f32
     from repro_torch.models import lm as LM
-    if depth < cfg.n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=depth)
-        model = LM.from_state_dict(cfg, {
-            k: v for k, v in model.state_dict().items()
-            if not k.startswith('layers.') or int(k.split('.')[1]) < depth})
+    cfg, model = _cut(cfg, model, depth)
     toks = torch.randint(0, cfg.vocab, (CHECK_BATCH, CHECK_LEN),
                          generator=g, device=ctx['dev'], dtype=torch.int32)
     logits, out = {}, dict(depth=depth)
@@ -2182,6 +2226,289 @@ def phase_lm(ctx):
     res['wkv_kernel_ms'] = ms
     del args, got, want
     torch.cuda.empty_cache()
+    return res
+
+
+def _draw_biases(torch, model, g):
+    """The QKV biases initialize to zero, which would leave the bias add
+    unexercised; give them seeded values, as the CPU tests do."""
+    with torch.no_grad():
+        for lay in model.layers:
+            for name in ('bq', 'bk', 'bv'):
+                if hasattr(lay.attn, name):
+                    b = getattr(lay.attn, name)
+                    b.copy_(0.5 * torch.randn(b.shape, generator=g,
+                                              device=b.device))
+
+
+def _dense_batch(torch, cfg, b, n_tok, g, dev):
+    """(full batch, its first positions but the last, the last position's
+    decode batch, positions in all) for the config's frontend: tokens,
+    256 image embeddings before the tokens, or audio frame embeddings."""
+    if cfg.frontend == 'audio':
+        fe = torch.randn((b, n_tok, cfg.d_model), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+        return ({'frame_embeds': fe}, {'frame_embeds': fe[:, :-1]},
+                {'frame_embeds': fe[:, -1:]}, n_tok)
+    toks = torch.randint(0, cfg.vocab, (b, n_tok), generator=g, device=dev,
+                         dtype=torch.int32)
+    if cfg.frontend == 'vision':
+        f = cfg.frontend_tokens
+        img = torch.randn((b, f, cfg.d_model), generator=g, device=dev,
+                          dtype=torch.bfloat16)
+        return ({'tokens': toks, 'image_embeds': img},
+                {'tokens': toks[:, :-1], 'image_embeds': img},
+                {'tokens': toks[:, -1:]}, f + n_tok)
+    return ({'tokens': toks}, {'tokens': toks[:, :-1]},
+            {'tokens': toks[:, -1:]}, n_tok)
+
+
+def _dense_consistency(ctx, model, cfg, g, depth):
+    """Last-position logits (float32) of the model cut to its first
+    `depth` layers, at B = CHECK_BATCH and CHECK_LEN tokens (plus the
+    image embeddings of a vision model): prefill of all positions but
+    the last, the cache grown by one slot, and one decode step, against
+    the full forward. Largest absolute difference, the logits' scale,
+    and the difference's norm relative to the logits' norm."""
+    torch = ctx['torch']
+    from repro_torch.convert import pad_cache
+    from repro_torch.models import lm as LM
+    cfg, model = _cut(cfg, model, depth)
+    full, pre, last, s = _dense_batch(torch, cfg, CHECK_BATCH, CHECK_LEN, g,
+                                      ctx['dev'])
+    with torch.no_grad():
+        want = LM._last_logits(model, cfg, LM.forward_train(model, cfg, full))
+    cache, _ = LM.forward_prefill(model, cfg, pre)
+    _, dec = LM.forward_decode(model, cfg, pad_cache(cache, s), last, s - 1)
+    check(bool(torch.isfinite(want).all() and torch.isfinite(dec).all()),
+          f'non-finite logits at depth {depth}')
+    return dict(depth=depth, positions=s,
+                pd_max_abs_err=float((dec - want).abs().max()),
+                pd_rel_norm=float((dec - want).norm() / want.norm()),
+                logit_scale=float(want.abs().max()))
+
+
+def _held(torch, got, want, rel, peak):
+    """(relative norm, largest difference over the largest value) of got
+    against want, both float32 on the CPU, and whether both are inside
+    the bars."""
+    got, want = got.float().cpu(), want.float()
+    r = float((got - want).norm() / want.norm())
+    p = float((got - want).abs().max() / want.abs().max())
+    return r, p, bool(torch.isfinite(got).all()) and r < rel and p <= peak
+
+
+def _dense_card_vs_cpu(ctx, model, cfg, g):
+    """The model's first two layers (full width) on the card and, copied,
+    on the CPU: prefill logits and cache at B = CHECK_BATCH, T =
+    CHECK_LEN within the CPU tests' bars. The cache bars were measured
+    one layer's projections deep (tests/test_torch_dense_lm.py), which
+    is layer 0's cache here; layer 1's keys and values lie a whole
+    full-width layer deeper and are held, with the logits, to the model
+    bars."""
+    torch = ctx['torch']
+    from repro_torch.models import lm as LM
+    cfg, model = _cut(cfg, model, 2)
+    cpu = LM.from_state_dict(cfg, {k: v.cpu()
+                                   for k, v in model.state_dict().items()})
+    full, _, _, _ = _dense_batch(torch, cfg, CHECK_BATCH, CHECK_LEN, g,
+                                 ctx['dev'])
+    cache, lg = LM.forward_prefill(model, cfg, full)
+    t_a = time.perf_counter()
+    cache_c, lg_c = LM.forward_prefill(cpu, cfg, {k: v.cpu()
+                                                 for k, v in full.items()})
+    out = dict(cpu_prefill_seconds=time.perf_counter() - t_a)
+    ok = True
+    for name, got, want, bars in (
+            ('logits', lg, lg_c, DENSE_MODEL_BARS),
+            ('k0', cache['k'][0], cache_c['k'][0], DENSE_CACHE_BARS),
+            ('v0', cache['v'][0], cache_c['v'][0], DENSE_CACHE_BARS),
+            ('k', cache['k'], cache_c['k'], DENSE_MODEL_BARS),
+            ('v', cache['v'], cache_c['v'], DENSE_MODEL_BARS)):
+        r, p, inside = _held(torch, got, want, **bars)
+        out[f'{name}_rel_norm'], out[f'{name}_max_over_scale'] = r, p
+        ok &= inside
+    check(ok, f'card != CPU beyond the CPU tests\' bars: {out}')
+    return out
+
+
+def _sdpa_record(ctx, q, k, v):
+    """Off the path, for the record: torch's causal
+    `scaled_dot_product_attention` (GQA enabled) beside the port's
+    `blockwise_attention` on the same bf16 inputs, with their largest
+    difference as a share of the output's scale. Nothing checks it."""
+    torch = ctx['torch']
+    import torch.nn.functional as F
+    from repro_torch.models.layers import blockwise_attention
+
+    def port():
+        return blockwise_attention(q, k, v, causal=True, block_kv=1024)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    a, b = port().float(), sdpa().float()
+    return dict(shape=list(q.shape), kv_heads=k.shape[2],
+                port_ms=time_ms(torch, port, reps=3),
+                sdpa_ms=time_ms(torch, sdpa, reps=10),
+                max_abs_diff_over_scale=float((a - b).abs().max()
+                                              / a.abs().max()),
+                rel_norm_diff=float((a - b).norm() / a.norm()))
+
+
+def phase_dense(ctx):
+    torch, dev = ctx['torch'], ctx['dev']
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get
+    from repro_torch.convert import pad_cache
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import lm as LM
+    from repro_torch.models.layers import rope
+    cfg = get(DENSE_ARCH)
+    t0 = time.perf_counter()
+    model = LM.init_model(cfg, seed=ctx['seed'], device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 7)
+    _draw_biases(torch, model, g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                            device=dev, dtype=torch.int32)
+
+    def serve(tokens, steps, capacity):
+        """Prefill `tokens` into a cache of `capacity` positions, then
+        `steps` greedy decode steps; returns the cache, the generated
+        ids, the prefill and decode seconds, and whether every logit was
+        finite (read once, after the last step)."""
+        _reset_counts()
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        cache, logits = prefill(model, {'tokens': tokens})
+        cache = pad_cache(cache, capacity)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        finite = torch.isfinite(logits).all()
+        out = [logits.argmax(-1)]
+        ptrs = (cache['k'].data_ptr(), cache['v'].data_ptr())
+        for i in range(steps):
+            cache, logits = decode(model, cache, {'tokens': out[-1][:, None]
+                                                  .to(torch.int32)},
+                                   tokens.shape[1] + i)
+            finite &= torch.isfinite(logits).all()
+            out.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        check((cache['k'].data_ptr(), cache['v'].data_ptr()) == ptrs,
+              'decode replaced the cache tensors')
+        return (cache, torch.stack(out, 1), t_b - t_a, t_c - t_b,
+                bool(finite))
+
+    serve(prompts[:, :64], 2, 128)               # warm: libraries, cuBLAS
+    torch.cuda.reset_peak_memory_stats()
+    cache, gen, pre_s, dec_s, finite = serve(prompts, LM_DECODE,
+                                             DENSE_CAPACITY)
+    check(finite, 'non-finite logits in prefill or decode')
+    launches = _counts()
+    check(not any(launches.values()),
+          f'a kernel of the port launched on the dense path: {launches}')
+    res = dict(arch=DENSE_ARCH, card=_card(),
+               n_params=sum(p.numel() for p in model.parameters()),
+               layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+               kv_heads=cfg.n_kv_heads, batch=LM_BATCH, prompt=LM_PROMPT,
+               decode_steps=LM_DECODE, capacity=DENSE_CAPACITY,
+               cache_bytes=sum(c.numel() * c.element_size()
+                               for c in cache.values()),
+               init_seconds=init_s, prefill_seconds=pre_s,
+               prefill_tokens_per_s=LM_BATCH * LM_PROMPT / pre_s,
+               decode_ms_per_token=1e3 * dec_s / LM_DECODE,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               generated_ids_first_row=gen[0, :8].tolist())
+
+    # a prefill, then decode steps, under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_a = time.perf_counter()
+        prefill(model, {'tokens': prompts})
+        torch.cuda.synchronize()
+        wall_pre = 1e6 * (time.perf_counter() - t_a)
+    busy, n_ops, _ = _device_busy(prof)
+    res['profile_prefill'] = dict(
+        wall_ms=wall_pre / 1e3, device_busy_ms=busy / 1e3,
+        idle_share=1.0 - busy / wall_pre if n_ops else None,
+        device_ops=n_ops, top_kernels=_top_kernels(prof))
+    tok = gen[:, -1:].to(torch.int32)
+    pos = LM_PROMPT + LM_DECODE
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_a = time.perf_counter()
+        for i in range(4):
+            cache, logits = decode(model, cache, {'tokens': tok}, pos + i)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        wall_dec = 1e6 * (time.perf_counter() - t_a)
+    busy, n_ops, _ = _device_busy(prof)
+    res['profile_decode'] = dict(
+        ms_per_step=wall_dec / 4e3, device_busy_ms_per_step=busy / 4e3,
+        idle_share=1.0 - busy / wall_dec if n_ops else None,
+        device_ops_per_step=n_ops / 4, top_kernels=_top_kernels(prof))
+    del cache, logits
+
+    # DENSE_FAULT_BAR: the first two layers are held to the CPU tests'
+    # bar; over all 36 bf16 rounding differences accumulate (the
+    # reference's init gives each layer matrix std 1/6): on the H100 the
+    # gap grew from 0.0036 of the logits' norm at 2 layers to 0.058 at 36
+    # (this phase's own measurement, PERF.md section 6). So the full depth
+    # is held to 0.25, some four times that drift, which a fault (a wrong
+    # cache slot, position or hand-off decorrelates the logits: about 1)
+    # crosses.
+    short = _dense_consistency(ctx, model, cfg, g, 2)
+    full_depth = _dense_consistency(ctx, model, cfg, g, cfg.n_layers)
+    res['consistency'] = [short, full_depth]
+    check(short['pd_max_abs_err'] <= DENSE_PD_BAR,
+          f'prefill + decode off the full forward at depth 2: {short}')
+    check(full_depth['pd_rel_norm'] <= DENSE_FAULT_BAR,
+          f'prefill + decode differ by a fault at full depth: {full_depth}')
+    res['card_vs_cpu'] = _dense_card_vs_cpu(ctx, model, cfg, g)
+
+    # for the record: torch's attention at the prefill shape, on unit
+    # normal queries, keys and values turned by RoPE
+    positions = torch.arange(LM_PROMPT, device=dev).expand(LM_BATCH,
+                                                           LM_PROMPT)
+
+    def draw(heads):
+        x = torch.randn((LM_BATCH, LM_PROMPT, heads, cfg.head_dim),
+                        generator=g, device=dev, dtype=torch.bfloat16)
+        return rope(x, positions, cfg.rope_theta)
+    res['sdpa_record'] = _sdpa_record(ctx, draw(cfg.n_heads),
+                                      draw(cfg.n_kv_heads),
+                                      draw(cfg.n_kv_heads))
+    del model
+    torch.cuda.empty_cache()
+
+    # the other widths at 2 layers (a depth cut), seeded weights
+    res['widths'] = []
+    for arch in DENSE_WIDTHS:
+        wcfg = dataclasses.replace(get(arch), n_layers=2)
+        torch.cuda.reset_peak_memory_stats()
+        t_a = time.perf_counter()
+        wmodel = LM.init_model(wcfg, seed=ctx['seed'], device=dev)
+        _draw_biases(torch, wmodel, g)
+        row = dict(arch=arch, layers=2, d_model=wcfg.d_model,
+                   head_dim=wcfg.head_dim, act=wcfg.act,
+                   frontend=wcfg.frontend,
+                   n_params=sum(p.numel() for p in wmodel.parameters()),
+                   **_dense_consistency(ctx, wmodel, wcfg, g, 2))
+        torch.cuda.synchronize()
+        row['seconds'] = time.perf_counter() - t_a
+        row['peak_memory_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res['widths'].append(row)
+        check(row['pd_max_abs_err'] <= DENSE_PD_BAR,
+              f'{arch}: prefill + decode off the full forward: {row}')
+        del wmodel
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2896,7 +3223,7 @@ PHASES = (('build', phase_build), ('parity', phase_parity),
           ('sweep', phase_sweep), ('sparse', phase_sparse),
           ('stream', phase_stream), ('losses', phase_losses),
           ('refit', phase_refit), ('sharded', phase_sharded),
-          ('lm', phase_lm),
+          ('lm', phase_lm), ('dense', phase_dense),
           ('train', phase_train), ('time', phase_time))
 
 

@@ -1,24 +1,31 @@
 """Architecture registry of the port: `get(arch)` resolves a name.
 
-Only the architectures whose forward the port runs are here. The other
-names of the reference registry are known, and `get` raises for them,
-naming the ROADMAP item that ports them.
+Only the architectures whose forward the port runs are here: RWKV-6 and
+the dense-attention (GQA) family with its vision and audio frontends.
+The other names of the reference registry are known, and `get` raises
+for them, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
-from . import rwkv6_3b
+from . import (command_r_plus_104b, internvl2_26b, minicpm_2b,
+               musicgen_medium, nemotron_4_340b, qwen2_5_3b, rwkv6_3b)
 from .base import LM_SHAPES, ModelConfig, ShapeConfig, shapes_for  # noqa: F401
 
 ARCHS = {
+    'command-r-plus-104b': command_r_plus_104b.config,
+    'minicpm-2b': minicpm_2b.config,
+    'qwen2.5-3b': qwen2_5_3b.config,
+    'nemotron-4-340b': nemotron_4_340b.config,
     'rwkv6-3b': rwkv6_3b.config,
+    'internvl2-26b': internvl2_26b.config,
+    'musicgen-medium': musicgen_medium.config,
 }
 
 # Names of the reference registry that the port does not run yet.
 UNPORTED = {
-    'command-r-plus-104b', 'minicpm-2b', 'qwen2.5-3b', 'nemotron-4-340b',
-    'internvl2-26b', 'jamba-1.5-large-398b', 'deepseek-v2-lite-16b',
-    'moonshot-v1-16b-a3b', 'musicgen-medium', 'ranksvm-linear',
+    'jamba-1.5-large-398b', 'deepseek-v2-lite-16b', 'moonshot-v1-16b-a3b',
+    'ranksvm-linear',
 }
 
 
@@ -27,6 +34,6 @@ def get(arch: str) -> ModelConfig:
         return ARCHS[arch]()
     if arch in UNPORTED:
         raise NotImplementedError(
-            f'{arch!r} is not ported yet: the LM families other than '
-            'RWKV-6 are ROADMAP Queue 1 item 13(c)')
+            f'{arch!r} is not ported yet: MLA, MoE, the Mamba hybrid and '
+            'the dry-run configs are ROADMAP Queue 1 item 13(c)')
     raise KeyError(f'unknown arch {arch!r}; known: {sorted(ARCHS)}')

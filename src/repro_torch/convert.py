@@ -18,7 +18,10 @@ carries a reference `PathPoint` (lam, w, report) across.
 reference's parameter pytree (nested dicts, layers stacked) as float32
 numpy arrays and returns the port's `state_dict` in bf16, for
 `models.lm.from_state_dict`. `lm_cache_from_reference(cache)` carries a
-decode cache, so both packages decode from the same state.
+decode cache (RWKV-6 states, or attention keys and values), so both
+packages decode from the same state. `pad_cache(cache, capacity)` grows a
+prefill's attention cache (S = T positions) to a decode capacity, zeros
+past T, as the reference's serving loop and tests pad theirs.
 `train_state_from_reference(state, cfg)` carries a whole train state
 (parameters, AdamW master/m/v and count, step), so both packages take
 the same train step from it.
@@ -141,8 +144,30 @@ def _pick(tree, part):
 
 def lm_cache_from_reference(cache, *, device=None):
     """The port's decode cache from the reference's: 's' float32,
-    'tm_last' and 'cm_last' bf16, layers stacked as in both packages."""
+    'tm_last' and 'cm_last' bf16 (RWKV-6), or 'k' and 'v' bf16
+    (attention), layers stacked as in both packages."""
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.array(v, np.float32)).to(
         dev, torch.float32 if k == 's' else torch.bfloat16)
         for k, v in cache.items()}
+
+
+def pad_cache(cache, capacity: int):
+    """A decode cache of `capacity` positions from a prefill's cache: the
+    attention entries 'k' and 'v' (L, B, T, G, hd) are copied into zeros
+    of (L, B, capacity, G, hd) on their device; any other entry (an
+    RWKV-6 state, which does not grow) is passed through. Decode then
+    writes into the result in place."""
+    out = {}
+    for key, val in cache.items():
+        if key in ('k', 'v'):
+            t = val.shape[2]
+            if t > capacity:
+                raise ValueError(f'a cache of {t} positions does not fit a '
+                                 f'capacity of {capacity}')
+            grown = val.new_zeros(val.shape[:2] + (capacity,)
+                                  + val.shape[3:])
+            grown[:, :, :t] = val
+            val = grown
+        out[key] = val
+    return out

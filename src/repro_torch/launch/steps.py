@@ -1,11 +1,11 @@
-"""Step builders and input specs for the RWKV-6 cells: train, prefill
-and decode.
+"""Step builders and input specs for the LM cells: train, prefill and
+decode.
 
-The port of the reference's `launch/steps.py` for the token frontend.
-`make_step(cfg, shape, tcfg)` returns the step of the cell's kind (the
-train step of `train.trainer`, or a serving step) with its input specs.
-Specs are `TensorSpec`s (shape, dtype), the counterpart of the
-reference's ShapeDtypeStructs.
+The port of the reference's `launch/steps.py`, for the token frontend
+and the vision and audio stubs. `make_step(cfg, shape, tcfg)` returns the
+step of the cell's kind (the train step of `train.trainer`, or a serving
+step) with its input specs. Specs are `TensorSpec`s (shape, dtype), the
+counterpart of the reference's ShapeDtypeStructs.
 """
 
 from __future__ import annotations
@@ -17,18 +17,19 @@ from ..models import lm as LM
 from ..train.trainer import make_train_step
 
 i32 = torch.int32
-
-
-def _check_frontend(cfg: ModelConfig):
-    if cfg.frontend != 'none':
-        raise NotImplementedError(
-            f'{cfg.name}: the {cfg.frontend} frontend is not ported '
-            '(ROADMAP Queue 1 item 13(c))')
+bf16 = torch.bfloat16
 
 
 def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig):
-    _check_frontend(cfg)
     b, s = shape.global_batch, shape.seq_len
+    if cfg.frontend == 'vision':
+        f = cfg.frontend_tokens
+        return {'tokens': LM.TensorSpec((b, s - f), i32),
+                'image_embeds': LM.TensorSpec((b, f, cfg.d_model), bf16),
+                'targets': LM.TensorSpec((b, s - f), i32)}
+    if cfg.frontend == 'audio':
+        return {'frame_embeds': LM.TensorSpec((b, s, cfg.d_model), bf16),
+                'targets': LM.TensorSpec((b, s), i32)}
     return {'tokens': LM.TensorSpec((b, s), i32),
             'targets': LM.TensorSpec((b, s), i32)}
 
@@ -40,10 +41,12 @@ def prefill_batch_specs(cfg: ModelConfig, shape: ShapeConfig):
 
 
 def decode_batch_specs(cfg: ModelConfig, shape: ShapeConfig):
-    _check_frontend(cfg)
     b = shape.global_batch
-    return {'batch': {'tokens': LM.TensorSpec((b, 1), i32)},
-            'cache': LM.cache_struct(cfg, b, shape.seq_len),
+    if cfg.frontend == 'audio':
+        batch = {'frame_embeds': LM.TensorSpec((b, 1, cfg.d_model), bf16)}
+    else:
+        batch = {'tokens': LM.TensorSpec((b, 1), i32)}
+    return {'batch': batch, 'cache': LM.cache_struct(cfg, b, shape.seq_len),
             'pos': LM.TensorSpec((), i32)}
 
 

@@ -1,13 +1,15 @@
 """Decoder-LM assembly: parameter declarations, the layer stack, and the
-train / prefill / decode forwards, for the RWKV-6 family.
+train / prefill / decode forwards, for the RWKV-6 family and the dense
+attention (GQA) family with its vision and audio frontends.
 
-The port of the reference's `models/lm.py`, rwkv6 branches only; the
-other families raise (ROADMAP Queue 1 item 13(c)). The reference scans
-one layer body over stacked parameters; the port holds the layers
-unstacked in an `nn.ModuleList` and loops over them. Declarations stay
-stacked (`model_defs`), so both packages count and draw the same leaves,
-and `state_dict_from_tree` unstacks a stacked tree into the port's
-`state_dict` keys ('layers.<l>.tm.wr', ...).
+The port of the reference's `models/lm.py`, rwkv6 and gqa branches; MLA
+and MoE (ROADMAP Queue 1 item 13(c)(ii)) and the Mamba hybrid (13(c)(iii))
+raise. The reference scans one layer body over stacked parameters; the
+port holds the layers unstacked in an `nn.ModuleList` and loops over
+them. Declarations stay stacked (`model_defs`), so both packages count
+and draw the same leaves, and `state_dict_from_tree` unstacks a stacked
+tree into the port's `state_dict` keys ('layers.<l>.tm.wr',
+'layers.<l>.attn.wq', ...).
 
 The forwards take the model where the reference takes its parameter
 tree, and the config separately, so that one set of weights can run
@@ -15,10 +17,20 @@ either WKV route. `forward_train` runs under autograd, each layer
 checkpointed (`remat='layer'`, the reference's `jax.checkpoint` of its
 scanned layer) so that only the layer boundaries are kept for the
 backward; `chunked_xent` is the LM loss over it. Prefill and decode are
-serving entry points and run without autograd. The decode cache keeps
-the reference's stacked layout: 's' (L, B, H, K, K) float32, 'tm_last'
-and 'cm_last' (L, B, d) bf16, the last token of each layer's normed
-inputs.
+serving entry points and run without autograd.
+
+The frontends are stubs, as in the reference (`_assemble_inputs`): a
+vision model takes precomputed image embeddings, placed before the token
+embeddings; an audio model takes precomputed frame embeddings in place
+of tokens, in prefill and in decode.
+
+The decode cache keeps the reference's stacked layout. RWKV-6: 's' (L,
+B, H, K, K) float32, 'tm_last' and 'cm_last' (L, B, d) bf16, the last
+token of each layer's normed inputs; a decode step returns a new cache.
+Attention: 'k' and 'v' (L, B, S, G, hd) bf16 of a fixed capacity S; a
+prefill returns them at S = T (`convert.pad_cache` grows them to a
+capacity), and a decode step writes the new position into the caller's
+cache tensors in place and returns the same dict (`layers.gqa_attention`).
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.platform import full_f32, resolve_device
 from . import rwkv6 as R
-from .layers import RMSNorm, rmsnorm, rmsnorm_defs
+from .layers import (MLP, Attention, RMSNorm, attention_defs, gqa_attention,
+                     mlp, mlp_defs, rmsnorm, rmsnorm_defs)
 from .params import ParamDef, add_params, init_params, stack_tree
 
 f32 = torch.float32
@@ -44,10 +57,17 @@ TensorSpec = collections.namedtuple('TensorSpec', 'shape dtype')
 
 
 def _check_family(cfg):
-    if cfg.attn != 'rwkv6':
+    if cfg.attn == 'mla' or cfg.is_moe or cfg.dense_d_ff_first:
         raise NotImplementedError(
-            f'{cfg.name}: only the RWKV-6 family is ported; attention, MLA, '
-            'MoE and Mamba are ROADMAP Queue 1 item 13(c)')
+            f'{cfg.name}: MLA and MoE are not ported yet (ROADMAP Queue 1 '
+            'item 13(c)(ii)); the port runs RWKV-6 and dense GQA attention')
+    if cfg.hybrid_period > 0:
+        raise NotImplementedError(
+            f'{cfg.name}: the Mamba hybrid is not ported yet (ROADMAP Queue '
+            '1 item 13(c)(iii)); the port runs RWKV-6 and dense GQA '
+            'attention')
+    if cfg.attn not in ('rwkv6', 'gqa'):
+        raise ValueError(f'{cfg.name}: unknown attention {cfg.attn!r}')
 
 
 def padded_vocab(cfg) -> int:
@@ -59,10 +79,14 @@ def padded_vocab(cfg) -> int:
 
 
 def _layer_defs(cfg):
-    d = R.rwkv_defs(cfg)
-    d['ln1'] = rmsnorm_defs(cfg.d_model)
-    d['ln2'] = rmsnorm_defs(cfg.d_model)
-    return d
+    defs = {'ln1': rmsnorm_defs(cfg.d_model),
+            'ln2': rmsnorm_defs(cfg.d_model)}
+    if cfg.attn == 'rwkv6':
+        defs.update(R.rwkv_defs(cfg))
+    else:
+        defs['attn'] = attention_defs(cfg)
+        defs['ffn'] = mlp_defs(cfg)
+    return defs
 
 
 def _top_defs(cfg):
@@ -103,6 +127,23 @@ class RWKVLayer(nn.Module):
         return _rwkv_layer(self, self.cfg, x, state, tm_last, cm_last)
 
 
+class AttnLayer(nn.Module):
+    """One attention layer: ln1, attn (GQA), ln2, ffn (MLP)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = RMSNorm(cfg.d_model, device)
+        self.attn = Attention(cfg, device)
+        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.ffn = MLP(cfg, device)
+
+    def forward(self, x, positions, cache=None, cache_len=None,
+                decode=False):
+        return _attn_layer(self, self.cfg, x, positions, cache, cache_len,
+                           decode)
+
+
 class LM(nn.Module):
     """The decoder LM: embed, layers (unstacked), ln_f, lm_head (unless
     tied) and score_head, with the reference's keys, in bf16. Parameters
@@ -115,7 +156,8 @@ class LM(nn.Module):
         self.cfg = cfg
         add_params(self, _top_defs(cfg), device)
         self.ln_f = RMSNorm(cfg.d_model, device)
-        self.layers = nn.ModuleList(RWKVLayer(cfg, device)
+        layer = RWKVLayer if cfg.attn == 'rwkv6' else AttnLayer
+        self.layers = nn.ModuleList(layer(cfg, device)
                                     for _ in range(cfg.n_layers))
 
     def forward(self, tokens):
@@ -167,12 +209,17 @@ def init_model(cfg, seed: int = 0, device=None, dtype=bf16) -> LM:
 
 def cache_struct(cfg, batch: int, seq: int, dtype=bf16):
     """TensorSpecs of the decode cache (also used to allocate). The RWKV-6
-    state does not grow with `seq`."""
+    state does not grow with `seq`; the attention cache holds `seq`
+    positions."""
     _check_family(cfg)
-    h, k, d = cfg.n_heads, cfg.rwkv_head_dim, cfg.d_model
-    return {'s': TensorSpec((cfg.n_layers, batch, h, k, k), f32),
-            'tm_last': TensorSpec((cfg.n_layers, batch, d), dtype),
-            'cm_last': TensorSpec((cfg.n_layers, batch, d), dtype)}
+    n = cfg.n_layers
+    if cfg.attn == 'rwkv6':
+        h, k, d = cfg.n_heads, cfg.rwkv_head_dim, cfg.d_model
+        return {'s': TensorSpec((n, batch, h, k, k), f32),
+                'tm_last': TensorSpec((n, batch, d), dtype),
+                'cm_last': TensorSpec((n, batch, d), dtype)}
+    kv = TensorSpec((n, batch, seq, cfg.n_kv_heads, cfg.head_dim), dtype)
+    return {'k': kv, 'v': kv}
 
 
 def init_cache(cfg, batch: int, seq: int, dtype=bf16, device=None):
@@ -182,6 +229,9 @@ def init_cache(cfg, batch: int, seq: int, dtype=bf16, device=None):
 
 
 # ------------------------------------------------------------- forwards
+
+# Vocab columns of the LM head cast to float32 at a time by `_last_logits`.
+HEAD_COLUMNS = 32768
 
 
 def _rwkv_layer(lp, cfg, x, state=None, tm_last=None, cm_last=None):
@@ -194,8 +244,35 @@ def _rwkv_layer(lp, cfg, x, state=None, tm_last=None, cm_last=None):
     return x, new_s, new_tm, new_cm
 
 
+def _attn_layer(lp, cfg, x, positions, cache=None, cache_len=None,
+                decode=False):
+    h, new_kv = gqa_attention(lp.attn, cfg, rmsnorm(lp.ln1, x), positions,
+                              cache_kv=cache, cache_len=cache_len,
+                              decode=decode)
+    x = x + h
+    x = x + mlp(lp.ffn, cfg, rmsnorm(lp.ln2, x))
+    return x, new_kv
+
+
 def _embed_tokens(params, cfg, tokens):
     return F.embedding(tokens, params.embed)
+
+
+def _assemble_inputs(params, cfg, batch):
+    """The (B, S, d) input of the stack: image embeddings before the
+    token embeddings (vision), frame embeddings in place of them
+    (audio), or the token embeddings."""
+    if cfg.frontend == 'vision':
+        tok = _embed_tokens(params, cfg, batch['tokens'])
+        return torch.cat([batch['image_embeds'].to(tok.dtype), tok], dim=1)
+    if cfg.frontend == 'audio':
+        return batch['frame_embeds']
+    return _embed_tokens(params, cfg, batch['tokens'])
+
+
+def _positions(x):
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device).expand(b, s)
 
 
 def lm_head_weight(params, cfg):
@@ -206,12 +283,20 @@ def lm_head_weight(params, cfg):
 
 def _last_logits(params, cfg, x):
     """Last-position logits (B, vocab_padded): a bf16 x bf16 product with
-    float32 accumulation and output, never rounded to bf16."""
-    return x[:, -1].to(bf16).to(f32) @ lm_head_weight(params, cfg).to(f32)
+    float32 accumulation and output, never rounded to bf16. The head is
+    cast to float32 HEAD_COLUMNS vocab columns at a time, each logit's sum
+    unchanged, so no float32 copy of the whole head is made (18.9 GB at
+    nemotron-4-340b's width)."""
+    xl = x[:, -1].to(bf16).to(f32)
+    w = lm_head_weight(params, cfg)
+    return torch.cat([xl @ w[:, c:c + HEAD_COLUMNS].to(f32)
+                      for c in range(0, w.shape[1], HEAD_COLUMNS)], dim=1)
 
 
-def _layer_out(lp, cfg, x):
-    return _rwkv_layer(lp, cfg, x)[0]
+def _layer_out(lp, cfg, x, positions):
+    if cfg.attn == 'rwkv6':
+        return _rwkv_layer(lp, cfg, x)[0]
+    return _attn_layer(lp, cfg, x, positions)[0]
 
 
 def forward_train(params, cfg, batch, remat: str = 'layer'):
@@ -223,12 +308,14 @@ def forward_train(params, cfg, batch, remat: str = 'layer'):
     if remat not in ('none', 'layer'):
         raise ValueError(f"remat must be 'none' or 'layer'; got {remat!r}")
     with full_f32():
-        x = _embed_tokens(params, cfg, batch['tokens']).to(bf16)
+        x = _assemble_inputs(params, cfg, batch).to(bf16)
+        positions = _positions(x)
         for lp in params.layers:
             if remat == 'layer' and torch.is_grad_enabled():
-                x = checkpoint(_layer_out, lp, cfg, x, use_reentrant=False)
+                x = checkpoint(_layer_out, lp, cfg, x, positions,
+                               use_reentrant=False)
             else:
-                x = _layer_out(lp, cfg, x)
+                x = _layer_out(lp, cfg, x, positions)
         return rmsnorm(params.ln_f, x)
 
 
@@ -258,16 +345,22 @@ def chunked_xent(params, cfg, hidden, targets, chunk: int = 512):
 
 @torch.no_grad()
 def forward_prefill(params, cfg, batch):
-    """Causal forward that also returns the populated state cache and the
-    last-position logits (B, vocab_padded) float32."""
+    """Causal forward that also returns the populated cache (attention:
+    k and v at capacity S = T) and the last-position logits
+    (B, vocab_padded) float32."""
     with full_f32():
-        x = _embed_tokens(params, cfg, batch['tokens']).to(bf16)
-        cache = {'s': [], 'tm_last': [], 'cm_last': []}
+        x = _assemble_inputs(params, cfg, batch).to(bf16)
+        positions = _positions(x)
+        cache = collections.defaultdict(list)
         for lp in params.layers:
-            x, st, tm, cm = _rwkv_layer(lp, cfg, x)
-            cache['s'].append(st)
-            cache['tm_last'].append(tm)
-            cache['cm_last'].append(cm)
+            if cfg.attn == 'rwkv6':
+                x, st, tm, cm = _rwkv_layer(lp, cfg, x)
+                new = {'s': st, 'tm_last': tm, 'cm_last': cm}
+            else:
+                x, (k, v) = _attn_layer(lp, cfg, x, positions)
+                new = {'k': k, 'v': v}
+            for key, val in new.items():
+                cache[key].append(val)
         x = rmsnorm(params.ln_f, x)
         logits = _last_logits(params, cfg, x)
     return {k: torch.stack(v) for k, v in cache.items()}, logits
@@ -275,19 +368,36 @@ def forward_prefill(params, cfg, batch):
 
 @torch.no_grad()
 def forward_decode(params, cfg, cache, batch, pos):
-    """One-token decode from the state cache. `pos` (the count of tokens
-    already in the cache) is taken for the reference's signature; the
-    RWKV-6 state needs no position. Returns (new_cache, logits)."""
+    """One-token decode. `batch` holds 'tokens' (B, 1), or 'frame_embeds'
+    (B, 1, d) for an audio model; `pos` (an int) counts the positions
+    already in the cache. Returns (cache, logits).
+
+    RWKV-6 needs no position and returns a new state cache. Attention
+    writes the new key and value at `pos` into `cache['k']` and
+    `cache['v']` in place (their capacity must exceed `pos`) and returns
+    the caller's dict, so a step copies nothing of the cache."""
     with full_f32():
-        x = _embed_tokens(params, cfg, batch['tokens']).to(bf16)  # (B,1,d)
-        new = {'s': [], 'tm_last': [], 'cm_last': []}
-        for l, lp in enumerate(params.layers):
-            x, st, tm, cm = _rwkv_layer(
-                lp, cfg, x, state=cache['s'][l],
-                tm_last=cache['tm_last'][l], cm_last=cache['cm_last'][l])
-            new['s'].append(st)
-            new['tm_last'].append(tm)
-            new['cm_last'].append(cm)
+        if cfg.frontend == 'audio':
+            x = batch['frame_embeds'].to(bf16)                  # (B, 1, d)
+        else:
+            x = _embed_tokens(params, cfg, batch['tokens']).to(bf16)
+        if cfg.attn == 'rwkv6':
+            new = {'s': [], 'tm_last': [], 'cm_last': []}
+            for l, lp in enumerate(params.layers):
+                x, st, tm, cm = _rwkv_layer(
+                    lp, cfg, x, state=cache['s'][l],
+                    tm_last=cache['tm_last'][l], cm_last=cache['cm_last'][l])
+                new['s'].append(st)
+                new['tm_last'].append(tm)
+                new['cm_last'].append(cm)
+            cache = {k: torch.stack(v) for k, v in new.items()}
+        else:
+            pos = int(pos)
+            positions = torch.full((x.shape[0], 1), pos, device=x.device)
+            for l, lp in enumerate(params.layers):
+                x, _ = _attn_layer(lp, cfg, x, positions,
+                                   cache=(cache['k'][l], cache['v'][l]),
+                                   cache_len=pos, decode=True)
         x = rmsnorm(params.ln_f, x)
         logits = _last_logits(params, cfg, x)
-    return {k: torch.stack(v) for k, v in new.items()}, logits
+    return cache, logits

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.wkv.ops import wkv_apply
+from .layers import mm as _mm
 from .params import ParamDef, add_params
 
 f32 = torch.float32
@@ -68,12 +69,6 @@ def rwkv_defs(cfg):
             'wr': ParamDef((d, d), ('embed', 'embed_act')),
         },
     }
-
-
-def _mm(a, b):
-    """a @ b in the promoted dtype of the two (jnp.einsum's rule)."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
 
 
 def _token_shift(x, last):

@@ -81,7 +81,17 @@ def loss_and_grads(params, cfg, tcfg, batch):
 def make_train_step(cfg, tcfg):
     """train_step(state, batch) -> (state, {'loss', 'gnorm', 'lr'}), where
     batch holds 'tokens' (B, S) and 'targets' (lm) or 'utilities' and
-    optionally 'groups' (rank_hinge) on the parameters' device."""
+    optionally 'groups' (rank_hinge) on the parameters' device.
+
+    Only the RWKV-6 family trains in the port so far: its gradients are
+    held to the reference's. The attention families serve
+    (`launch/steps.py`) but their training is ROADMAP Queue 1 item
+    13(c)(i)'s training half, and this raises for them."""
+    if cfg.attn != 'rwkv6':
+        raise NotImplementedError(
+            f'{cfg.name}: training is ported for RWKV-6 only; training the '
+            'attention families is ROADMAP Queue 1 item 13(c)(i), training '
+            'half')
     schedule = make_schedule(cfg, tcfg)
 
     def train_step(state, batch):

@@ -1148,3 +1148,96 @@ def test_compressed_mean_on_the_card_equals_the_cpu(cuda_device):
         for k in tree:
             assert torch.equal(outs[0][k].cpu(), outs[1][k])
             assert torch.equal(errs[0][k].cpu(), errs[1][k])
+
+
+# -- dense GQA attention serving (slice 11) -----------------------------------
+
+
+def _dense_pair(dev):
+    """Reduced qwen2.5-3b (4 query heads over 1 KV head, QKV bias) with
+    drawn biases, on the CPU and copied to `dev`."""
+    cfg = reduced('qwen2.5-3b')
+    cpu = LM.init_model(cfg, seed=0, device='cpu')
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for lay in cpu.layers:
+            for name in ('bq', 'bk', 'bv'):
+                b = getattr(lay.attn, name)
+                b.copy_(0.5 * torch.randn(b.shape, generator=g))
+    card = LM.from_state_dict(cfg, {k: v.to(dev)
+                                    for k, v in cpu.state_dict().items()})
+    return cfg, cpu, card
+
+
+def _inside_bars(got, want, rel, peak):
+    got, want = got.float().cpu(), want.float()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).norm() / want.norm()) < rel
+    assert float((got - want).abs().max()) <= peak * float(want.abs().max())
+
+
+def test_dense_prefill_and_decode_on_the_card_match_the_cpu(cuda_device):
+    """Reduced qwen2.5-3b with the same weights on both devices: prefill
+    logits and cache, then three decode steps into a padded cache, within
+    the CPU tests' bars (tests/test_torch_dense_lm.py: logits 3% in
+    relative norm and 5% of the largest value, the cache 1% and 2%)."""
+    from repro_torch.convert import pad_cache
+    cfg, cpu, card = _dense_pair(cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 48)), dtype=torch.int32)
+    out = {}
+    for dev, model in (('cpu', cpu), ('cuda', card)):
+        t = toks.to(dev)
+        cache, lg = LM.forward_prefill(model, cfg, {'tokens': t[:, :40]})
+        out[dev] = [lg, cache['k'], cache['v']]
+        cache = pad_cache(cache, 64)
+        for pos in range(40, 43):
+            cache, lg = LM.forward_decode(model, cfg, cache,
+                                          {'tokens': t[:, pos:pos + 1]}, pos)
+            out[dev].append(lg)
+        out[dev] += [cache['k'], cache['v']]
+    for i, (got, want) in enumerate(zip(out['cuda'], out['cpu'])):
+        bars = (0.01, 0.02) if i in (1, 2, 6, 7) else (0.03, 0.05)
+        _inside_bars(got, want, *bars)
+
+
+def test_blockwise_attention_on_the_card_matches_the_cpu(cuda_device):
+    """Causal attention at the prefill cell's length (T = 4096, blocks of
+    1024), qwen2.5-3b's 16 query heads over 2 KV heads of 128, bf16: the
+    card's output within 2^-7 of the CPU's scale (one bf16 ulp: the two
+    devices sum the same exact products in another order)."""
+    from repro_torch.models.layers import blockwise_attention
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn((1, 4096, 16, 128), generator=g).to(torch.bfloat16)
+    k = torch.randn((1, 4096, 2, 128), generator=g).to(torch.bfloat16)
+    v = torch.randn((1, 4096, 2, 128), generator=g).to(torch.bfloat16)
+    want = blockwise_attention(q, k, v, causal=True).float()
+    got = blockwise_attention(q.to(cuda_device), k.to(cuda_device),
+                              v.to(cuda_device), causal=True)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    err = float((got.float().cpu() - want).abs().max())
+    assert err <= 2.0 ** -7 * float(want.abs().max())
+
+
+def test_dense_decode_makes_no_copy_of_the_cache(cuda_device):
+    """Decode writes into the caller's cache tensors: the same dict and
+    the same storage after every step, and nothing of a cache's size
+    allocated by a step."""
+    from repro_torch.convert import pad_cache
+    cfg, _, card = _dense_pair(cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 17), dtype=torch.int32,
+                         device=cuda_device)
+    cache, _ = LM.forward_prefill(card, cfg, {'tokens': toks[:, :16]})
+    cache = pad_cache(cache, 32768)
+    ptrs = (cache['k'].data_ptr(), cache['v'].data_ptr())
+    nbytes = cache['k'].numel() * cache['k'].element_size()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    for pos in range(16, 20):
+        new, _ = LM.forward_decode(card, cfg, cache,
+                                   {'tokens': toks[:, -1:]}, pos)
+        assert new is cache
+        assert (cache['k'].data_ptr(), cache['v'].data_ptr()) == ptrs
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < nbytes
