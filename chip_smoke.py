@@ -4,8 +4,8 @@ through the counting kernels, under each of its three losses, along a
 regularization path, incrementally retrained and resumed from
 checkpoints, split over a mesh of ranks, and RankSVM serving; RWKV-6
 serving through the WKV forward kernel, dense GQA attention serving
-(qwen2.5-3b; no kernel of the port lies on that path), and RWKV-6
-training through both WKV kernels.
+(qwen2.5-3b; no kernel of the port lies on that path), RWKV-6 training
+through both WKV kernels, and dense GQA attention training.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -231,7 +231,26 @@ line; any failure ends the run with a non-zero exit code:
            kernels' share of its device time), and both WKV kernels' times
            at the training shape (N = 160; the forward writing
            boundaries).
-19. time   where an iteration's time goes at the main shapes (CUDA
+19. dense_train  dense GQA attention training at the full qwen2.5-3b
+           width and depth, seeded weights with the QKV biases drawn, as
+           in dense: first the first two layers at B = 1, T = 256 on the
+           card against a CPU copy, the bf16 lm loss within 2e-3 and
+           every leaf's float32 gradient (TF32 off) within
+           DENSE_GRAD_BARS (the embedding's within EMBED_GRAD_BARS); then
+           `make_train_step` (remat='layer', AdamW, lr 3e-4, one warmup
+           step) at B = 4 x T = 4096 for three lm steps and two
+           rank_hinge steps from --seed, as in train. Loss, gnorm and lr
+           finite, tracked weights and masters moved, the peak device
+           memory under the card's. Prints train tokens/s, seconds per
+           step, peak memory, a profiler window over the last lm step,
+           and the attention's and RoPE's share of its device time
+           (their forward and forward-plus-backward timed alone at the
+           step's shape, times the layers). Then one lm step each of
+           internvl2-26b (256 image embeddings before 512 tokens) and
+           musicgen-medium (512 audio frames) at full width and 2
+           layers, loss and gnorm finite. No kernel of the port lies on
+           this path. Releases each model.
+20. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP; and a torch.profiler window over device-driver
            bundle steps (device busy share, device operations per step).
@@ -2243,24 +2262,20 @@ def _draw_biases(torch, model, g):
 
 def _dense_batch(torch, cfg, b, n_tok, g, dev):
     """(full batch, its first positions but the last, the last position's
-    decode batch, positions in all) for the config's frontend: tokens,
-    256 image embeddings before the tokens, or audio frame embeddings."""
-    if cfg.frontend == 'audio':
-        fe = torch.randn((b, n_tok, cfg.d_model), generator=g, device=dev,
-                         dtype=torch.bfloat16)
-        return ({'frame_embeds': fe}, {'frame_embeds': fe[:, :-1]},
-                {'frame_embeds': fe[:, -1:]}, n_tok)
+    decode batch, positions in all) of `n_tok` seeded tokens, with the
+    config's frontend inputs as the train CLI makes them
+    (`repro_torch.data.frontend_inputs`): the tokens, image embeddings
+    before them, or audio frames in their place."""
+    from repro_torch.data import frontend_inputs
     toks = torch.randint(0, cfg.vocab, (b, n_tok), generator=g, device=dev,
                          dtype=torch.int32)
-    if cfg.frontend == 'vision':
-        f = cfg.frontend_tokens
-        img = torch.randn((b, f, cfg.d_model), generator=g, device=dev,
-                          dtype=torch.bfloat16)
-        return ({'tokens': toks, 'image_embeds': img},
-                {'tokens': toks[:, :-1], 'image_embeds': img},
-                {'tokens': toks[:, -1:]}, f + n_tok)
-    return ({'tokens': toks}, {'tokens': toks[:, :-1]},
-            {'tokens': toks[:, -1:]}, n_tok)
+    full = {k: torch.as_tensor(v, device=dev) for k, v in frontend_inputs(
+        cfg, b, g.initial_seed())(0, toks.cpu().numpy()).items()}
+    pre = {k: v if k == 'image_embeds' else v[:, :-1]
+           for k, v in full.items()}
+    last = {k: v[:, -1:] for k, v in full.items() if k != 'image_embeds'}
+    front = cfg.frontend_tokens if cfg.frontend == 'vision' else 0
+    return full, pre, last, front + n_tok
 
 
 def _dense_consistency(ctx, model, cfg, g, depth):
@@ -2526,6 +2541,28 @@ GRAD_BARS = dict(rel_norm=0.12, max_abs_over_scale=0.22)
 GRAD_FAULT_BAR = 0.75
 
 
+def _leaf_gaps(got, want):
+    """Per leaf (relative norm of the difference, largest difference over
+    the leaf's scale) of two {name: gradient}, the worst of each with its
+    leaf, and the median leaf's relative norm."""
+    out = dict(rel_norm=[0.0, None], max_abs_over_scale=[0.0, None])
+    rels = []
+    for name, b in want.items():
+        b = b.float()
+        a = got[name].float().to(b.device)
+        norm, scale = float(b.norm()), float(b.abs().max())
+        if norm == 0.0:
+            continue
+        rels.append(float((a - b).norm()) / norm)
+        for key, val in (('rel_norm', rels[-1]),
+                         ('max_abs_over_scale',
+                          float((a - b).abs().max()) / scale)):
+            if val > out[key][0]:
+                out[key] = [val, name]
+    out['median_rel_norm'] = sorted(rels)[len(rels) // 2]
+    return out
+
+
 def _route_grads(torch, model, cfg, batch, impl):
     """(loss, {name: gradient}) of the lm loss through the `impl` route,
     remat='layer'."""
@@ -2566,20 +2603,7 @@ def _grad_gap(ctx, model, cfg, g, depth):
     out = dict(depth=depth, loss_kernel=float(loss_k), loss_scan=float(loss_s),
                wkv_fwd_launches=launches['wkv_fwd'],
                wkv_bwd_launches=launches['wkv_bwd'],
-               rel_norm=[0.0, None], max_abs_over_scale=[0.0, None])
-    rels = []
-    for name, b in gs.items():
-        a, b = gk[name].float(), b.float()
-        norm, scale = float(b.norm()), float(b.abs().max())
-        if norm == 0.0:
-            continue
-        rels.append(float((a - b).norm()) / norm)
-        for key, val in (('rel_norm', rels[-1]),
-                         ('max_abs_over_scale',
-                          float((a - b).abs().max()) / scale)):
-            if val > out[key][0]:
-                out[key] = [val, name]
-    out['median_rel_norm'] = sorted(rels)[len(rels) // 2]
+               **_leaf_gaps(gk, gs))
     check(launches['wkv_fwd'] == 2 * depth and launches['wkv_bwd'] == depth,
           f'gradient check at depth {depth} launched {launches}')
     return out
@@ -2783,6 +2807,273 @@ def _wkv_bwd_row(ctx, step_seconds, n_layers):
                 shape=[n, t, kk], geometry=W.bwd_geometry(kk), errors=errs,
                 launches_per_train_step=n_layers,
                 share_of_train_step_layer=ms * n_layers / (1e3 * step_seconds))
+
+
+# DENSE_GRAD_BARS: the first two layers' float32 gradients on the card
+# against the port's CPU path from the same weights, TF32 off, per leaf
+# (relative norm of the difference, largest difference over the leaf's
+# scale): the same float32 products summed in another order. Measured
+# on the card (NVIDIA H100 80GB HBM3, 700.00 W), every leaf but the
+# embedding at most 2.1e-4 in relative norm (layers.1.attn.bq) and
+# 3.1e-4 of scale (layers.1.attn.wq). The tied embedding's gradient
+# through the model's input passes the forward's bf16 cast of it, where
+# a float32 sum that lands on the other side of a bf16 rounding moves an
+# element by one bf16 ulp (up to 2^-7 of it): EMBED_GRAD_BARS, measured
+# 8.5e-4 in relative norm and 5.2e-3 of scale.
+DENSE_GRAD_BARS = dict(rel_norm=1e-3, max_abs_over_scale=1e-3)
+EMBED_GRAD_BARS = dict(rel_norm=2.5e-3, max_abs_over_scale=2.0 ** -7)
+# Dense training (dense_train phase): qwen2.5-3b at full width and depth
+# with the train phase's batch, length and steps; internvl2-26b and
+# musicgen-medium at full width and 2 layers, one lm step each at
+# FRONTEND_BATCH x FRONTEND_LEN text positions.
+DENSE_TRAIN_WIDTHS = ('internvl2-26b', 'musicgen-medium')
+FRONTEND_BATCH, FRONTEND_LEN = 1, 512
+
+
+def _dense_grad_check(ctx, model, cfg, g):
+    """The model cut to its first two layers (full width) at
+    B = GRAD_BATCH, T = GRAD_LEN, on the card and on a CPU copy of the
+    same weights: the lm loss in bf16 within the bf16 loss bar (2e-3),
+    and every leaf's gradient of the weights in float32 (remat='layer',
+    TF32 off) within DENSE_GRAD_BARS, the embedding's within
+    EMBED_GRAD_BARS."""
+    torch = ctx['torch']
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.platform import full_f32
+    from repro_torch.models import lm as LM
+    from repro_torch.train.trainer import loss_and_grads, loss_fn
+    cfg, model = _cut(cfg, model, 2)
+    seq = torch.randint(0, cfg.vocab, (GRAD_BATCH, GRAD_LEN + 1),
+                        generator=g, device=ctx['dev'], dtype=torch.int32)
+    batch = {'tokens': seq[:, :-1], 'targets': seq[:, 1:]}
+    tcfg = TrainConfig(remat='layer')
+    out = dict(depth=2, batch=GRAD_BATCH, seq=GRAD_LEN)
+    t_a = time.perf_counter()
+    grads = {}
+    for where, dev in (('card', ctx['dev']), ('cpu', 'cpu')):
+        state = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
+        on = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            out[f'loss_{where}'] = float(loss_fn(
+                LM.from_state_dict(cfg, state), cfg, tcfg, on))
+        with full_f32():
+            _, grads[where] = loss_and_grads(LM.from_state_dict(
+                cfg, {k: v.float() for k, v in state.items()}), cfg, tcfg,
+                on)
+    out['seconds'] = time.perf_counter() - t_a
+    card, cpu = grads['card'], grads['cpu']
+    out.update(_leaf_gaps({k: v for k, v in card.items() if k != 'embed'},
+                          {k: v for k, v in cpu.items() if k != 'embed'}))
+    out['embed'] = _leaf_gaps({'embed': card['embed']},
+                              {'embed': cpu['embed']})
+    check(all(bool(torch.isfinite(v).all()) for v in card.values()),
+          'non-finite gradients on the card')
+    check(abs(out['loss_card'] - out['loss_cpu'])
+          <= 2e-3 * abs(out['loss_cpu'])
+          and all(gaps[key][0] <= bars[key]
+                  for gaps, bars in ((out, DENSE_GRAD_BARS),
+                                     (out['embed'], EMBED_GRAD_BARS))
+                  for key in bars),
+          f'card gradients outside the bars at depth 2: {out}')
+    return out
+
+
+def _attention_ms(ctx, cfg):
+    """CUDA-event ms of the pieces that a checkpointed layer of the
+    train step runs on the step's (B, T): `blockwise_attention` once
+    without autograd (the forward) and once with it plus its backward
+    (the recompute and the backward); RoPE of q and k the same way.
+    Times `L` layers give an estimate of their device time in a step."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.kernels.platform import full_f32
+    from repro_torch.models.layers import blockwise_attention, rope
+    b, t = TRAIN_BATCH, TRAIN_LEN
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 9)
+
+    def draw(heads):
+        return torch.randn((b, t, heads, cfg.head_dim), generator=g,
+                           device=dev, dtype=torch.bfloat16)
+    q, k, v = draw(cfg.n_heads), draw(cfg.n_kv_heads), draw(cfg.n_kv_heads)
+    do = draw(cfg.n_heads)
+    pos = torch.arange(t, device=dev).expand(b, t)
+
+    def attn(grad):
+        if not grad:
+            with torch.no_grad():
+                return blockwise_attention(q, k, v, causal=True)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = blockwise_attention(*leaves, causal=True)
+        return torch.autograd.grad(out, leaves, do)
+
+    def ropes(grad):
+        if not grad:
+            with torch.no_grad():
+                return rope(q, pos, cfg.rope_theta), rope(k, pos,
+                                                          cfg.rope_theta)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k)]
+        outs = [rope(x, pos, cfg.rope_theta) for x in leaves]
+        return torch.autograd.grad(outs, leaves, [do, k])
+
+    with full_f32():
+        out = {name: time_ms(torch, lambda f=f, gr=gr: f(gr), reps=3)
+               for name, f, gr in (('attn_fwd_ms', attn, False),
+                                   ('attn_fwd_bwd_ms', attn, True),
+                                   ('rope_fwd_ms', ropes, False),
+                                   ('rope_fwd_bwd_ms', ropes, True))}
+    out['attn_ms_per_step'] = cfg.n_layers * (out['attn_fwd_ms']
+                                              + out['attn_fwd_bwd_ms'])
+    out['rope_ms_per_step'] = cfg.n_layers * (out['rope_fwd_ms']
+                                              + out['rope_fwd_bwd_ms'])
+    return out
+
+
+def _frontend_step(ctx, arch, g):
+    """One lm train step of `arch` at full width and 2 layers (seeded
+    weights, biases drawn), its frontend's inputs on the card: finite
+    loss and gnorm."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.data import frontend_inputs
+    from repro_torch.models import lm as LM
+    from repro_torch.train.trainer import make_train_step, state_for
+    cfg = dataclasses.replace(get(arch), n_layers=2)
+    torch.cuda.reset_peak_memory_stats()
+    t_a = time.perf_counter()
+    model = LM.init_model(cfg, seed=ctx['seed'], device=dev)
+    _draw_biases(torch, model, g)
+    seq = torch.randint(0, cfg.vocab, (FRONTEND_BATCH, FRONTEND_LEN + 1),
+                        generator=g, device=dev, dtype=torch.int32)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in frontend_inputs(
+        cfg, FRONTEND_BATCH, ctx['seed'])(0, seq[:, :-1].cpu().numpy()
+                                          ).items()}
+    positions = FRONTEND_LEN + (cfg.frontend_tokens
+                                if cfg.frontend == 'vision' else 0)
+    step = make_train_step(cfg, TrainConfig(remat='layer', warmup_steps=0,
+                                            decay_steps=1))
+    _, metrics = step(state_for(model), dict(batch, targets=seq[:, 1:]))
+    torch.cuda.synchronize()
+    row = dict(arch=arch, layers=2, d_model=cfg.d_model,
+               frontend=cfg.frontend, positions=positions,
+               n_params=sum(p.numel() for p in model.parameters()),
+               seconds=time.perf_counter() - t_a,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               **{k: float(v) for k, v in metrics.items()})
+    check(math.isfinite(row['loss']) and math.isfinite(row['gnorm']),
+          f'{arch}: non-finite train step: {row}')
+    return row
+
+
+def phase_dense_train(ctx):
+    torch, dev = ctx['torch'], ctx['dev']
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.data import (RewardPipeline, TokenPipeline,
+                                  TokenPipelineConfig)
+    from repro_torch.models import lm as LM
+    from repro_torch.train.trainer import make_train_step, state_for
+    cfg = get(DENSE_ARCH)
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 10)
+    model = LM.init_model(cfg, seed=ctx['seed'], device=dev)
+    _draw_biases(torch, model, g)
+    grad_check = _dense_grad_check(ctx, model, cfg, g)
+    torch.cuda.empty_cache()
+
+    n_steps = TRAIN_LM_STEPS + TRAIN_RANK_STEPS
+    tcfg = TrainConfig(objective='lm', remat='layer', microbatches=1,
+                       warmup_steps=1, decay_steps=n_steps)
+    steps = {'lm': make_train_step(cfg, tcfg),
+             'rank_hinge': make_train_step(cfg, dataclasses.replace(
+                 tcfg, objective='rank_hinge'))}
+    tokens = TokenPipeline(TokenPipelineConfig(cfg.vocab, TRAIN_LEN,
+                                               TRAIN_BATCH, seed=ctx['seed']))
+    rewards = RewardPipeline(cfg.vocab, TRAIN_LEN, TRAIN_BATCH,
+                             seed=ctx['seed'])
+    state = state_for(model)
+    last = cfg.n_layers - 1
+    tracked = ('layers.0.attn.wq', f'layers.{last}.ffn.w1',
+               f'layers.{last}.ffn.w2', 'layers.0.attn.bq', 'score_head')
+    params = dict(model.named_parameters())
+    before = {k: (params[k].detach().clone(),
+                  state['opt']['mu'][k]['master'].clone()) for k in tracked}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records, prof = [], None
+    _reset_counts()
+    for i in range(n_steps):
+        objective = 'lm' if i < TRAIN_LM_STEPS else 'rank_hinge'
+        raw = (tokens.batch(i) if objective == 'lm' else
+               {k: v for k, v in rewards.batch(i).items()
+                if k in ('tokens', 'utilities')})
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        profiled = i == TRAIN_LM_STEPS - 1      # the last lm step
+        if profiled:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = steps[objective](state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if profiled:
+            prof.__exit__(None, None, None)
+        rec = dict(step=i + 1, objective=objective, seconds=secs,
+                   profiled=profiled,
+                   **{k: float(v) for k, v in metrics.items()})
+        records.append(rec)
+        check(all(math.isfinite(rec[k]) for k in ('loss', 'gnorm', 'lr')),
+              f'non-finite metrics at step {i + 1}: {rec}')
+    peak = torch.cuda.max_memory_allocated()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    launches = _counts()
+    check(not any(launches.values()),
+          f'a kernel of the port launched on the dense train path: '
+          f'{launches}')
+    moved = {k: dict(param=bool((params[k] != p0).any()),
+                     master=bool((state['opt']['mu'][k]['master']
+                                  != m0).any()))
+             for k, (p0, m0) in before.items()}
+    # a bias of 0.5 moves less than its bf16 ulp in five steps: its master
+    check(all(m['master'] for m in moved.values())
+          and all(moved[k]['param'] for k in tracked[:3]),
+          f'the weights did not move: {moved}')
+    check(peak < card_bytes, f'peak {peak} bytes above the card\'s '
+          f'{card_bytes}')
+    lm_secs = sorted(r['seconds'] for r in records if r['objective'] == 'lm')
+    median = lm_secs[len(lm_secs) // 2]
+    busy, n_ops, _ = _device_busy(prof)
+    wall_us = 1e6 * records[TRAIN_LM_STEPS - 1]['seconds']
+    res = dict(arch=DENSE_ARCH, card=_card(), batch=TRAIN_BATCH,
+               seq=TRAIN_LEN, layers=cfg.n_layers,
+               n_params=sum(p.numel() for p in model.parameters()),
+               grad_check=grad_check, grad_bars=DENSE_GRAD_BARS,
+               embed_grad_bars=EMBED_GRAD_BARS,
+               steps=records, median_lm_step_seconds=median,
+               train_tokens_per_s=TRAIN_BATCH * TRAIN_LEN / median,
+               peak_memory_gib=peak / 2 ** 30,
+               card_memory_gib=card_bytes / 2 ** 30, moved=moved)
+    del state, model, params, before, steps, metrics
+    torch.cuda.empty_cache()
+    parts = _attention_ms(ctx, cfg)
+    res['profile_step'] = dict(
+        objective='lm', step=TRAIN_LM_STEPS, wall_ms=wall_us / 1e3,
+        device_busy_ms=busy / 1e3,
+        idle_share=1.0 - busy / wall_us if n_ops else None,
+        device_ops=n_ops, top_kernels=_top_kernels(prof, k=8),
+        attention_share_of_device_time=parts['attn_ms_per_step'] * 1e3 / busy
+        if busy else None,
+        rope_share_of_device_time=parts['rope_ms_per_step'] * 1e3 / busy
+        if busy else None, **parts)
+    del prof
+    res['widths'] = []
+    for arch in DENSE_TRAIN_WIDTHS:
+        res['widths'].append(_frontend_step(ctx, arch, g))
+        torch.cuda.empty_cache()
+    return res
 
 
 def _bf16_bars(torch, loss_s, a_s, loss_r, a_r):
@@ -3224,7 +3515,8 @@ PHASES = (('build', phase_build), ('parity', phase_parity),
           ('stream', phase_stream), ('losses', phase_losses),
           ('refit', phase_refit), ('sharded', phase_sharded),
           ('lm', phase_lm), ('dense', phase_dense),
-          ('train', phase_train), ('time', phase_time))
+          ('train', phase_train), ('dense_train', phase_dense_train),
+          ('time', phase_time))
 
 
 def _card() -> str:

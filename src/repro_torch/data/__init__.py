@@ -6,4 +6,4 @@ from .sparse import CSRMatrix, random_tfidf  # noqa: F401
 from .synthetic import (RankingData, cadata_drift,  # noqa: F401
                         cadata_like, ordinal_like, reuters_like)
 from .tokens import (RewardPipeline, TokenPipeline,  # noqa: F401
-                     TokenPipelineConfig)
+                     TokenPipelineConfig, frontend_inputs)

@@ -108,3 +108,24 @@ class RewardPipeline:
         if self.n_groups:
             out['groups'] = grp
         return out
+
+
+def frontend_inputs(cfg, batch: int, seed: int):
+    """inputs(step, tokens) -> the model's inputs (numpy) for a (batch, S)
+    numpy batch of the token stream, the reference's frontend stubs
+    (`repro.launch.train`): an audio model takes frames looked up in a
+    fixed seeded codebook in place of the tokens (it predicts the token
+    ids), a vision model `frontend_tokens` image embeddings drawn from
+    (seed, step) before them; any other model the tokens."""
+    if cfg.frontend == 'audio':
+        cb = (np.random.default_rng(7).normal(size=(cfg.vocab, cfg.d_model))
+              .astype(np.float32) * 0.1)
+        return lambda step, tokens: {'frame_embeds': cb[tokens]}
+    if cfg.frontend == 'vision':
+        def inputs(step, tokens):
+            rng = np.random.default_rng((seed, step))
+            img = rng.normal(size=(batch, cfg.frontend_tokens, cfg.d_model)
+                             ).astype(np.float32)
+            return {'tokens': tokens, 'image_embeds': img}
+        return inputs
+    return lambda step, tokens: {'tokens': tokens}

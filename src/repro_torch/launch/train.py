@@ -1,16 +1,19 @@
 """Training launcher CLI of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.train \
-        --arch rwkv6-3b --reduced --steps 20 --batch 4 --seq 64 \
+        --arch qwen2.5-3b --reduced --steps 20 --batch 4 --seq 64 \
         --objective lm --device cpu --ckpt-dir /path/to/run1
 
 Trains the chosen architecture from a seeded init on the port's token
 pipelines through the fault-tolerant loop (`runtime.run`): the full
 config by default, `--reduced` for the small same-family config.
 `--objective rank_hinge` trains the scalar score head with the paper's
-linearithmic pairwise hinge; `lm` is next-token cross-entropy. It prints
-the reference's step and done lines. It runs on the CUDA device unless
-given `--device cpu`.
+linearithmic pairwise hinge; `lm` is next-token cross-entropy. A vision
+model (`internvl2-26b`) gets seeded image embeddings before the tokens
+and an audio model (`musicgen-medium`) frames from a fixed seeded
+codebook in place of them, as in the reference, under either objective.
+It prints the reference's step and done lines. It runs on the CUDA
+device unless given `--device cpu`.
 
 With `--ckpt-dir` it checkpoints every `--ckpt-every` steps (default 50)
 and at the end, with a metrics.jsonl beside them, and a second run with
@@ -27,7 +30,8 @@ import os
 from ..configs.base import TrainConfig
 from ..configs.reduced import reduce_config
 from ..configs.registry import ARCHS, get
-from ..data import RewardPipeline, TokenPipeline, TokenPipelineConfig
+from ..data import (RewardPipeline, TokenPipeline, TokenPipelineConfig,
+                    frontend_inputs)
 from ..kernels.platform import resolve_device
 from ..runtime import LoopConfig, run
 from ..train.trainer import init_state, make_train_step
@@ -58,6 +62,9 @@ def main(argv=None):
     cfg = get(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    if cfg.frontend != 'none' and args.objective == 'lm':
+        print(f'note: {args.arch} has a {cfg.frontend} frontend stub; '
+              f'training the token backbone')
     tcfg = TrainConfig(objective=args.objective, learning_rate=args.lr,
                        warmup_steps=max(args.steps // 10, 1),
                        decay_steps=args.steps, remat=args.remat,
@@ -67,13 +74,16 @@ def main(argv=None):
     if args.objective == 'rank_hinge':
         pipe = RewardPipeline(cfg.vocab, args.seq, args.batch,
                               seed=args.seed)
-
-        def batch_fn(step):
-            b = pipe.batch(step)
-            return {'tokens': b['tokens'], 'utilities': b['utilities']}
+        label = 'utilities'
     else:
-        batch_fn = TokenPipeline(TokenPipelineConfig(
-            cfg.vocab, args.seq, args.batch, seed=args.seed)).batch
+        pipe = TokenPipeline(TokenPipelineConfig(
+            cfg.vocab, args.seq, args.batch, seed=args.seed))
+        label = 'targets'
+    frontend = frontend_inputs(cfg, args.batch, args.seed)
+
+    def batch_fn(step):
+        b = pipe.batch(step)
+        return {**frontend(step, b['tokens']), label: b[label]}
 
     ckpt_dir = args.ckpt_dir
     if ckpt_dir is not None:

@@ -11,6 +11,7 @@ and draw the same leaves, and `state_dict_from_tree` unstacks a stacked
 tree into the port's `state_dict` keys ('layers.<l>.tm.wr',
 'layers.<l>.attn.wq', ...).
 
+Both families train (`train.trainer`) and serve (`launch/steps.py`).
 The forwards take the model where the reference takes its parameter
 tree, and the config separately, so that one set of weights can run
 either WKV route. `forward_train` runs under autograd, each layer
@@ -56,7 +57,7 @@ bf16 = torch.bfloat16
 TensorSpec = collections.namedtuple('TensorSpec', 'shape dtype')
 
 
-def _check_family(cfg):
+def check_family(cfg):
     if cfg.attn == 'mla' or cfg.is_moe or cfg.dense_d_ff_first:
         raise NotImplementedError(
             f'{cfg.name}: MLA and MoE are not ported yet (ROADMAP Queue 1 '
@@ -102,7 +103,7 @@ def _top_defs(cfg):
 
 
 def model_defs(cfg):
-    _check_family(cfg)
+    check_family(cfg)
     defs = _top_defs(cfg)
     defs['ln_f'] = rmsnorm_defs(cfg.d_model)
     defs['layers'] = stack_tree(_layer_defs(cfg), cfg.n_layers)
@@ -152,7 +153,7 @@ class LM(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        _check_family(cfg)
+        check_family(cfg)
         self.cfg = cfg
         add_params(self, _top_defs(cfg), device)
         self.ln_f = RMSNorm(cfg.d_model, device)
@@ -211,7 +212,7 @@ def cache_struct(cfg, batch: int, seq: int, dtype=bf16):
     """TensorSpecs of the decode cache (also used to allocate). The RWKV-6
     state does not grow with `seq`; the attention cache holds `seq`
     positions."""
-    _check_family(cfg)
+    check_family(cfg)
     n = cfg.n_layers
     if cfg.attn == 'rwkv6':
         h, k, d = cfg.n_heads, cfg.rwkv_head_dim, cfg.d_model

@@ -42,7 +42,10 @@ def loss_fn(params, cfg, tcfg, batch):
     if tcfg.objective != 'lm':
         raise ValueError(f"objective must be 'lm' or 'rank_hinge'; got "
                          f'{tcfg.objective!r}')
-    return LM.chunked_xent(params, cfg, hidden, batch['targets'])
+    targets = batch['targets']
+    if cfg.frontend == 'vision':
+        hidden = hidden[:, -targets.shape[1]:, :]   # loss on text positions
+    return LM.chunked_xent(params, cfg, hidden, targets)
 
 
 def loss_and_grads(params, cfg, tcfg, batch):
@@ -80,18 +83,15 @@ def loss_and_grads(params, cfg, tcfg, batch):
 
 def make_train_step(cfg, tcfg):
     """train_step(state, batch) -> (state, {'loss', 'gnorm', 'lr'}), where
-    batch holds 'tokens' (B, S) and 'targets' (lm) or 'utilities' and
-    optionally 'groups' (rank_hinge) on the parameters' device.
+    batch holds the model's inputs ('tokens'; 'image_embeds' before them
+    for a vision model, 'frame_embeds' in their place for an audio one)
+    and 'targets' (lm) or 'utilities' and optionally 'groups'
+    (rank_hinge), on the parameters' device.
 
-    Only the RWKV-6 family trains in the port so far: its gradients are
-    held to the reference's. The attention families serve
-    (`launch/steps.py`) but their training is ROADMAP Queue 1 item
-    13(c)(i)'s training half, and this raises for them."""
-    if cfg.attn != 'rwkv6':
-        raise NotImplementedError(
-            f'{cfg.name}: training is ported for RWKV-6 only; training the '
-            'attention families is ROADMAP Queue 1 item 13(c)(i), training '
-            'half')
+    The RWKV-6 and dense attention (GQA) families train, their gradients
+    held to the reference's; MLA, MoE and the Mamba hybrid raise, as they
+    do in `models.lm` (ROADMAP Queue 1 item 13(c)(ii) and (iii))."""
+    LM.check_family(cfg)
     schedule = make_schedule(cfg, tcfg)
 
     def train_step(state, batch):

@@ -6,8 +6,10 @@ the sparse and streamed oracles on the card (the tree's memory, the
 device transpose-matvec, the streaming budget and its determinism), the
 loss axis (the weighted tree's memory, TopPush's coefficients, the
 r-level counts, the accumulator's budget), the reduced RWKV-6 prefill
-and train step on the card against the CPU, and the sharded oracle on a
-one-rank NCCL group against the CPU.
+and train step on the card against the CPU, the sharded oracle on a
+one-rank NCCL group against the CPU, the reduced dense attention model's
+prefill, decode and train step (its frontends too) and the attention's
+float32 gradients against the CPU.
 
 Every test here needs a CUDA device (Hopper, for the sm_90a kernels) and
 is marked `cuda`; without one it skips. This module imports neither JAX
@@ -771,28 +773,43 @@ def test_rwkv_prefill_on_the_card_matches_the_cpu(impl, cuda_device):
             b.abs().max())
 
 
+@pytest.mark.parametrize('arch', ['rwkv6-3b', 'qwen2.5-3b', 'internvl2-26b',
+                                  'musicgen-medium'])
 @pytest.mark.parametrize('objective', ['lm', 'rank_hinge'])
-def test_train_step_on_the_card_matches_the_cpu(objective, cuda_device):
-    """One train step of reduced RWKV-6 (kernel route, remat='layer') from
-    the same state on both devices: each layer launches the forward
-    kernel twice (forward and recompute) and the backward kernel once;
-    loss within 2e-3 and gnorm within 2e-2 relative (bf16 activations,
-    rounded in another order by the card's matmuls)."""
+def test_train_step_on_the_card_matches_the_cpu(objective, arch,
+                                                cuda_device):
+    """One train step of a reduced config (remat='layer') from the same
+    state on both devices: RWKV-6 on the kernel route, each layer
+    launching the forward kernel twice (forward and recompute) and the
+    backward kernel once; the dense configs with their QKV biases drawn
+    and their frontends' inputs. Loss within 2e-3 and gnorm within 2e-2
+    relative (bf16 activations, rounded in another order by the card's
+    matmuls)."""
     import dataclasses
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import RewardPipeline, TokenPipeline
-    from repro_torch.data import TokenPipelineConfig
+    from repro_torch.data import TokenPipelineConfig, frontend_inputs
     from repro_torch.train.trainer import make_train_step, state_for
-    cfg = dataclasses.replace(reduced('rwkv6-3b'), wkv_impl='kernel')
+    cfg = reduced(arch)
+    if arch == 'rwkv6-3b':
+        cfg = dataclasses.replace(cfg, wkv_impl='kernel')
     tcfg = TrainConfig(objective=objective, warmup_steps=0)
     if objective == 'lm':
         raw = TokenPipeline(TokenPipelineConfig(cfg.vocab, 64, 16)).batch(0)
     else:
         raw = RewardPipeline(cfg.vocab, 64, 16).batch(0)
         raw.pop('groups', None)
+    raw.update(frontend_inputs(cfg, 16, 0)(0, raw.pop('tokens')))
     metrics = {}
     for dev in ('cpu', cuda_device):
         model = LM.init_model(cfg, seed=0, device='cpu')
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for lay in model.layers:
+                for name in ('bq', 'bk', 'bv'):
+                    if hasattr(getattr(lay, 'attn', None), name):
+                        b = getattr(lay.attn, name)
+                        b.copy_(0.5 * torch.randn(b.shape, generator=g))
         model = LM.from_state_dict(cfg, {k: v.to(dev) for k, v in
                                          model.state_dict().items()})
         state = state_for(model)
@@ -800,7 +817,7 @@ def test_train_step_on_the_card_matches_the_cpu(objective, cuda_device):
         fwd, bwd = W.WKV_FWD.launches, W.WKV_BWD.launches
         _, m = make_train_step(cfg, tcfg)(state, batch)
         metrics[str(dev)] = {k: float(v) for k, v in m.items()}
-        if dev != 'cpu':
+        if dev != 'cpu' and arch == 'rwkv6-3b':
             torch.cuda.synchronize()
             assert W.WKV_FWD.launches - fwd == 2 * cfg.n_layers
             assert W.WKV_BWD.launches - bwd == cfg.n_layers
@@ -1241,3 +1258,29 @@ def test_dense_decode_makes_no_copy_of_the_cache(cuda_device):
         assert (cache['k'].data_ptr(), cache['v'].data_ptr()) == ptrs
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - before < nbytes
+
+
+def test_blockwise_attention_f32_grads_on_the_card_match_the_cpu(
+        cuda_device):
+    """Float32 causal attention over T = 1536 in blocks of 1024 (a short
+    last block; rows of the second block past the diagonal masked
+    whole), qwen2.5-3b's 16 query heads over 2 KV heads of 128: the
+    gradients of q, k and v on the card, TF32 off (`full_f32`), within
+    1e-5 of the CPU's scale (the same float32 products summed in another
+    order)."""
+    from repro_torch.kernels.platform import full_f32
+    from repro_torch.models.layers import blockwise_attention
+    g = torch.Generator().manual_seed(3)
+    shapes = ((1, 1536, 16, 128), (1, 1536, 2, 128), (1, 1536, 2, 128))
+    q, k, v = (torch.randn(s, generator=g) for s in shapes)
+    do = torch.randn(shapes[0], generator=g)
+    grads = {}
+    for dev in ('cpu', cuda_device):
+        leaves = [x.to(dev).requires_grad_(True) for x in (q, k, v)]
+        with full_f32():
+            out = blockwise_attention(*leaves, causal=True)
+            grads[str(dev)] = torch.autograd.grad(out, leaves, do.to(dev))
+    for got, want in zip(grads[str(cuda_device)], grads['cpu']):
+        assert bool(torch.isfinite(got).all())
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())

@@ -264,10 +264,20 @@ def test_init_follows_the_reference_rule():
     assert abs(float(wq.std()) - 2 ** -0.5) < 0.05
 
 
-def test_training_the_attention_families_raises():
-    for arch in ARCHS:
-        with pytest.raises(NotImplementedError, match='13\\(c\\)\\(i\\)'):
-            make_train_step(reduced(arch), TrainConfig())
+def test_training_the_unported_families_raises():
+    """The dense configs train (tests/test_torch_dense_train*.py); MLA,
+    MoE and the Mamba hybrid raise in `make_train_step`, naming their
+    ROADMAP items."""
+    base = reduced('qwen2.5-3b')
+    moe = MoEConfig(num_experts=4, top_k=2, moe_d_ff=32)
+    for cfg, item in (
+            (dataclasses.replace(base, attn='mla', mla_kv_lora=32), 'ii'),
+            (dataclasses.replace(base, moe=moe), 'ii'),
+            (dataclasses.replace(base, dense_d_ff_first=64), 'ii'),
+            (dataclasses.replace(base, hybrid_period=8), 'iii')):
+        with pytest.raises(NotImplementedError,
+                           match=f'13\\(c\\)\\({item}\\)'):
+            make_train_step(cfg, TrainConfig())
 
 
 def test_unported_families_raise_in_the_model():

@@ -19,10 +19,11 @@ from torch_train_parity import check_pair, step_pair  # noqa: E402
 
 @pytest.mark.parametrize('impl', ['scan', 'kernel'])
 def test_lm_train_step_matches_reference(impl):
-    check_pair(step_pair(impl, 'lm', batch=4))
+    check_pair(step_pair('rwkv6-3b', 'lm', impl=impl, batch=4))
 
 
 def test_lm_train_step_with_microbatches_matches_reference():
     """Two microbatches of 2: gradients summed in float32, loss and
     gradients divided by 2, as the reference accumulates them."""
-    check_pair(step_pair('kernel', 'lm', batch=4, microbatches=2))
+    check_pair(step_pair('rwkv6-3b', 'lm', impl='kernel', batch=4,
+                         microbatches=2))
