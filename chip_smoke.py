@@ -4,8 +4,10 @@ through the counting kernels, under each of its three losses, along a
 regularization path, incrementally retrained and resumed from
 checkpoints, split over a mesh of ranks, and RankSVM serving; RWKV-6
 serving through the WKV forward kernel, dense GQA attention serving
-(qwen2.5-3b; no kernel of the port lies on that path), RWKV-6 training
-through both WKV kernels, and dense GQA attention training.
+(qwen2.5-3b), MLA and MoE serving (deepseek-v2-lite-16b,
+moonshot-v1-16b-a3b; no kernel of the port lies on these two paths),
+RWKV-6 training through both WKV kernels, and dense GQA attention
+training.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -91,12 +93,14 @@ line; any failure ends the run with a non-zero exit code:
            projected residency (plus the O(m) vectors and the counting
            pass's peak, which the projection leaves out), method='auto'
            keeps the fused oracle and allocates within that budget.
-           Then five grades cut at quantiles of the utilities:
+           Then five grades cut at quantiles of the utilities, fitted
+           for SPARSE_CHECK_ITER iterations (a depth cut: the engines
+           count bit-equally, so their iterates agree at any depth):
            engine='pallas' must launch the rank-counts kernel every
            iteration and reach the tree engine's objective within eps;
-           and `method='auto'` on a 4096-row Reuters sample must launch
-           the pairwise kernel every iteration, its counts at the fitted
-           w equal to the CPU tree's.
+           and `method='auto'` on a 4096-row Reuters sample, as deep,
+           must launch the pairwise kernel every iteration, its counts
+           at the fitted w equal to the CPU tree's.
 12. stream the same data streamed under memory_budget = 0.1953125 GiB
            (half the features' 0.39 GiB on the card): method='auto' must
            pick the streaming oracle; the bytes allocated on the card
@@ -214,7 +218,29 @@ line; any failure ends the run with a non-zero exit code:
            Prints prefill tokens/s, decode ms per token, peak memory,
            profiler windows over a prefill and decode steps, beside the
            card's name and power limit; releases each model.
-18. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
+18. moe    MLA and MoE serving: deepseek-v2-lite-16b at full width and
+           depth (27 layers, d = 2048, 16 heads of 128 + rope 64, MLA
+           kv_lora 512, 64 routed experts top-6 and 2 shared of width
+           1408, layer 0 dense at 10944, vocab 102400; 15.7e9
+           parameters), seeded weights drawn on the card: prefill of
+           B = 8 x T = 4096, the latent cache grown to 32768 positions
+           (`convert.pad_cache`, 8.15 GB), 32 greedy decode steps, each
+           writing the cache in place. Logits finite; no kernel of the
+           port launches. The prefill's dropped share of expert choices;
+           at B = 2, T = 256 prefill(T-1) + decode(1) against the full
+           forward with nothing dropped (capacity factor E/k: with
+           drops the two fill the experts' queues differently) within
+           0.05 on the first two layers and DENSE_FAULT_BAR over all 27;
+           the first two layers block by block on the card against a CPU
+           copy from the same inputs, within the CPU tests' bars, expert
+           choices equal but at near ties (MOE_TIE_MARGIN). Then
+           moonshot-v1-16b-a3b (GQA, vocab 163840, layer 0 dense at
+           11264) at full width and 3 layers through the same serve and
+           checks. Prints prefill tokens/s, decode ms per token, peak
+           memory, profiler windows over a prefill and decode steps, and
+           the attention's and MoE's estimated shares of the prefill's
+           device time; releases each model.
+19. train  RWKV-6 training at the full rwkv6-3b width and depth, seeded
            weights as in lm, wkv_impl='kernel', remat='layer', AdamW
            (f32 master, m, v): first the gradients at B = 1, T = 256, the
            kernel route against the scan route on the same weights, every
@@ -231,7 +257,7 @@ line; any failure ends the run with a non-zero exit code:
            kernels' share of its device time), and both WKV kernels' times
            at the training shape (N = 160; the forward writing
            boundaries).
-19. dense_train  dense GQA attention training at the full qwen2.5-3b
+20. dense_train  dense GQA attention training at the full qwen2.5-3b
            width and depth, seeded weights with the QKV biases drawn, as
            in dense: first the first two layers at B = 1, T = 256 on the
            card against a CPU copy, the bf16 lm loss within 2e-3 and
@@ -250,10 +276,11 @@ line; any failure ends the run with a non-zero exit code:
            musicgen-medium (512 audio frames) at full width and 2
            layers, loss and gnorm finite. No kernel of the port lies on
            this path. Releases each model.
-20. time   where an iteration's time goes at the main shapes (CUDA
+21. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
-           one bundle QP; and a torch.profiler window over device-driver
-           bundle steps (device busy share, device operations per step).
+           one bundle QP (the profiler window over device-driver bundle
+           steps is the path phase's `bundle_step_single`). Each
+           kernel's row (below) must take at least its bound_ms.
 
 Then the card's name and power limit (nvidia-smi), one line
 {"kernels": [...]} with each kernel's time (for the two counting kernels
@@ -300,6 +327,9 @@ REUTERS_N, REUTERS_NNZ, REUTERS_TEST = 49152, 50, 4096
 SPARSE_LAM = 1e-5
 STREAM_BUDGET_GIB = 0.1953125
 AUTO_M = 4096
+# Iterations of the sparse phase's graded engine pair and 'auto' run (a
+# depth cut: converged, they took 69 and 83, some 40 s of the phase).
+SPARSE_CHECK_ITER = 8
 # The loss axis (losses phase): rows per query of the main data, and the
 # r-level sweep of benchmarks/fig6_rlevels.py --full.
 QUERY_ROWS = 128
@@ -346,6 +376,18 @@ DENSE_PD_BAR = 0.05
 DENSE_MODEL_BARS = dict(rel=0.03, peak=0.05)
 DENSE_CACHE_BARS = dict(rel=0.01, peak=0.02)
 DENSE_FAULT_BAR = 0.25
+# MoE serving (moe phase): deepseek-v2-lite-16b at full width and depth
+# with the lm phase's prefill batch, length and decode steps into a cache
+# of decode_32k's length; moonshot-v1-16b-a3b at full width and
+# MOE_WIDTH_LAYERS layers (its 48 layers' 56.8 GB of weights and a cache
+# do not fit one card). Bars as in the dense phase. Card against CPU,
+# each block from the same input: a token's experts may differ only at a
+# near tie, its k-th and (k+1)-th router probabilities on the CPU within
+# MOE_TIE_MARGIN of the k-th (float32 sums in another order move a
+# probability by some 1e-7 of itself).
+MOE_ARCH, MOE_CAPACITY = 'deepseek-v2-lite-16b', 32768
+MOE_WIDTH_ARCH, MOE_WIDTH_LAYERS = 'moonshot-v1-16b-a3b', 3
+MOE_TIE_MARGIN = 1e-4
 # RWKV-6 training (train phase): batch and length (train_4k is 256 x
 # 4096), steps of each objective, and the gradient checks' shape.
 TRAIN_BATCH, TRAIN_LEN = 4, 4096
@@ -395,24 +437,38 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, name_part: str, reps: int) -> float:
+def device_ms(torch, fn, name_part: str, reps: int,
+              per_call: int = 1) -> float:
     """Mean milliseconds per fn() of the CUDA kernels whose name holds
-    `name_part`, from their device durations in a profiler window: the
-    kernels' own time, without the host's launch cost that a short
-    kernel's back-to-back CUDA-event time is bound by."""
+    `name_part` (`per_call` of them a call), from their device durations
+    in a profiler window: the kernels' own time, without the host's
+    launch cost that a short kernel's back-to-back CUDA-event time is
+    bound by. The profiler drops kernels at a window's edge (it
+    recorded 148 of 150 rank-counts launches and 48 of 50 pairwise ones
+    in every window on the H100), so the window runs two calls more and
+    the mean is taken over the last reps * per_call launches it
+    recorded: consecutive launches of identical calls, each kernel of a
+    call reps times among them. A window that recorded fewer is taken
+    again."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    need, seen = reps * per_call, []
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(reps + 2):
                 fn()
             torch.cuda.synchronize()
-        named = _device_busy(prof, name_part)[2]
-        if named > 0:
-            return named / 1e3 / reps
-    check(False, f'{PROFILE_TRIES} profiler windows saw no {name_part} '
-          'kernel')
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and name_part in e.name)
+        seen.append(len(spans))
+        if len(spans) >= need:
+            return sum(b - a for a, b in spans[-need:]) / 1e3 / reps
+    check(False, f'{PROFILE_TRIES} profiler windows recorded {seen} '
+          f'{name_part} launches, fewer than {need}')
 
 
 def _mslr_draw(torch, m: int, seed: int, dev):
@@ -1138,6 +1194,7 @@ def phase_sparse(ctx):
     # Five grades: the rank-counts kernel against the tree engine.
     y5 = _graded(np, y)
     ctx['reuters_graded'] = y5
+    kw = dict(kw, max_iter=SPARSE_CHECK_ITER)
     _reset_counts()
     svm_k, rep_k = _fit(ctx, X, y5, method='tree', engine='pallas', **kw)
     launches_k = _counts()
@@ -1932,7 +1989,8 @@ def _rank_counts_row(ctx):
     n_ranks = int(ranks.max()) + 1
     tj = RC.pick_tj(n_ranks)
     args = (*torch.sort(p, stable=True), ranks, n_ranks)
-    ms = device_ms(torch, lambda: RC._launch(*args, RC.TI, tj), 'rc_', 50)
+    ms = device_ms(torch, lambda: RC._launch(*args, RC.TI, tj), 'rc_', 50,
+                   per_call=len(RC_KERNELS))
     events_ms = time_ms(torch, lambda: RC._launch(*args, RC.TI, tj), reps=50)
     got = RC._launch(*args, RC.TI, tj)
     torch.cuda.synchronize()
@@ -2046,14 +2104,15 @@ def _randomize_mixing(torch, model, g):
 
 def _cut(cfg, model, depth):
     """The model cut to its first `depth` layers (the same weights, no
-    copy), with its config."""
+    copy), with its config; a layer 0 declared apart counts as one."""
     from repro_torch.models import lm as LM
     if depth >= cfg.n_layers:
         return cfg, model
+    stacked = depth - (1 if cfg.dense_d_ff_first else 0)
     cfg = dataclasses.replace(cfg, n_layers=depth)
     return cfg, LM.from_state_dict(cfg, {
         k: v for k, v in model.state_dict().items()
-        if not k.startswith('layers.') or int(k.split('.')[1]) < depth})
+        if not k.startswith('layers.') or int(k.split('.')[1]) < stacked})
 
 
 def _lm_consistency(ctx, model, cfg, g, depth):
@@ -2373,12 +2432,81 @@ def _sdpa_record(ctx, q, k, v):
                 rel_norm_diff=float((a - b).norm() / a.norm()))
 
 
-def phase_dense(ctx):
-    torch, dev = ctx['torch'], ctx['dev']
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.registry import get
+def _serve_lm(ctx, model, cfg, prompts, capacity, steps):
+    """Prefill `prompts` into a cache of `capacity` positions, then
+    `steps` greedy decode steps: the cache, the generated ids, prefill
+    and decode seconds, and whether every logit was finite (read once,
+    after the last step). Decode must write the caller's cache
+    tensors."""
+    torch = ctx['torch']
     from repro_torch.convert import pad_cache
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter()
+    cache, logits = prefill(model, {'tokens': prompts})
+    cache = pad_cache(cache, capacity)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    finite = torch.isfinite(logits).all()
+    out = [logits.argmax(-1)]
+    ptrs = {k: v.data_ptr() for k, v in cache.items()}
+    for i in range(steps):
+        cache, logits = decode(model, cache, {'tokens': out[-1][:, None]
+                                              .to(torch.int32)},
+                               prompts.shape[1] + i)
+        finite &= torch.isfinite(logits).all()
+        out.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    t_c = time.perf_counter()
+    check({k: v.data_ptr() for k, v in cache.items()} == ptrs,
+          'decode replaced the cache tensors')
+    return cache, torch.stack(out, 1), t_b - t_a, t_c - t_b, bool(finite)
+
+
+def _profile_serving(ctx, model, cfg, prompts, capacity):
+    """Profiler windows over a prefill of `prompts` and four decode steps
+    after it, its cache grown to `capacity`: device busy, idle share,
+    operations and top kernels."""
+    torch = ctx['torch']
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.convert import pad_cache
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    out = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_a = time.perf_counter()
+        cache, logits = prefill(model, {'tokens': prompts})
+        torch.cuda.synchronize()
+        wall_pre = 1e6 * (time.perf_counter() - t_a)
+    busy, n_ops, _ = _device_busy(prof)
+    out['profile_prefill'] = dict(
+        wall_ms=wall_pre / 1e3, device_busy_ms=busy / 1e3,
+        idle_share=1.0 - busy / wall_pre if n_ops else None,
+        device_ops=n_ops, top_kernels=_top_kernels(prof))
+    cache = pad_cache(cache, capacity)
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_a = time.perf_counter()
+        for i in range(4):
+            cache, logits = decode(model, cache, {'tokens': tok},
+                                   prompts.shape[1] + i)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        wall_dec = 1e6 * (time.perf_counter() - t_a)
+    busy, n_ops, _ = _device_busy(prof)
+    out['profile_decode'] = dict(
+        ms_per_step=wall_dec / 4e3, device_busy_ms_per_step=busy / 4e3,
+        idle_share=1.0 - busy / wall_dec if n_ops else None,
+        device_ops_per_step=n_ops / 4, top_kernels=_top_kernels(prof))
+    return out
+
+
+def phase_dense(ctx):
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.configs.registry import get
     from repro_torch.models import lm as LM
     from repro_torch.models.layers import rope
     cfg = get(DENSE_ARCH)
@@ -2389,42 +2517,13 @@ def phase_dense(ctx):
     _draw_biases(torch, model, g)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
                             device=dev, dtype=torch.int32)
-
-    def serve(tokens, steps, capacity):
-        """Prefill `tokens` into a cache of `capacity` positions, then
-        `steps` greedy decode steps; returns the cache, the generated
-        ids, the prefill and decode seconds, and whether every logit was
-        finite (read once, after the last step)."""
-        _reset_counts()
-        torch.cuda.synchronize()
-        t_a = time.perf_counter()
-        cache, logits = prefill(model, {'tokens': tokens})
-        cache = pad_cache(cache, capacity)
-        torch.cuda.synchronize()
-        t_b = time.perf_counter()
-        finite = torch.isfinite(logits).all()
-        out = [logits.argmax(-1)]
-        ptrs = (cache['k'].data_ptr(), cache['v'].data_ptr())
-        for i in range(steps):
-            cache, logits = decode(model, cache, {'tokens': out[-1][:, None]
-                                                  .to(torch.int32)},
-                                   tokens.shape[1] + i)
-            finite &= torch.isfinite(logits).all()
-            out.append(logits.argmax(-1))
-        torch.cuda.synchronize()
-        t_c = time.perf_counter()
-        check((cache['k'].data_ptr(), cache['v'].data_ptr()) == ptrs,
-              'decode replaced the cache tensors')
-        return (cache, torch.stack(out, 1), t_b - t_a, t_c - t_b,
-                bool(finite))
-
-    serve(prompts[:, :64], 2, 128)               # warm: libraries, cuBLAS
+    _serve_lm(ctx, model, cfg, prompts[:, :64], 128, 2)   # warm: cuBLAS
     torch.cuda.reset_peak_memory_stats()
-    cache, gen, pre_s, dec_s, finite = serve(prompts, LM_DECODE,
-                                             DENSE_CAPACITY)
+    _reset_counts()
+    cache, gen, pre_s, dec_s, finite = _serve_lm(ctx, model, cfg, prompts,
+                                                 DENSE_CAPACITY, LM_DECODE)
     check(finite, 'non-finite logits in prefill or decode')
     launches = _counts()
     check(not any(launches.values()),
@@ -2441,35 +2540,8 @@ def phase_dense(ctx):
                decode_ms_per_token=1e3 * dec_s / LM_DECODE,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                generated_ids_first_row=gen[0, :8].tolist())
-
-    # a prefill, then decode steps, under the profiler
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_a = time.perf_counter()
-        prefill(model, {'tokens': prompts})
-        torch.cuda.synchronize()
-        wall_pre = 1e6 * (time.perf_counter() - t_a)
-    busy, n_ops, _ = _device_busy(prof)
-    res['profile_prefill'] = dict(
-        wall_ms=wall_pre / 1e3, device_busy_ms=busy / 1e3,
-        idle_share=1.0 - busy / wall_pre if n_ops else None,
-        device_ops=n_ops, top_kernels=_top_kernels(prof))
-    tok = gen[:, -1:].to(torch.int32)
-    pos = LM_PROMPT + LM_DECODE
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_a = time.perf_counter()
-        for i in range(4):
-            cache, logits = decode(model, cache, {'tokens': tok}, pos + i)
-            tok = logits.argmax(-1)[:, None].to(torch.int32)
-        torch.cuda.synchronize()
-        wall_dec = 1e6 * (time.perf_counter() - t_a)
-    busy, n_ops, _ = _device_busy(prof)
-    res['profile_decode'] = dict(
-        ms_per_step=wall_dec / 4e3, device_busy_ms_per_step=busy / 4e3,
-        idle_share=1.0 - busy / wall_dec if n_ops else None,
-        device_ops_per_step=n_ops / 4, top_kernels=_top_kernels(prof))
-    del cache, logits
+    del cache
+    res.update(_profile_serving(ctx, model, cfg, prompts, DENSE_CAPACITY))
 
     # DENSE_FAULT_BAR: the first two layers are held to the CPU tests'
     # bar; over all 36 bf16 rounding differences accumulate (the
@@ -2525,6 +2597,275 @@ def phase_dense(ctx):
         del wmodel
         torch.cuda.empty_cache()
     return res
+
+
+def _no_drop(cfg):
+    """cfg with the capacity factor raised to E / k: every expert has a
+    slot for every token, so a full forward and a prefill with its decode
+    steps drop nothing and route alike."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+
+
+def _moe_choices(model, run):
+    """(dropped expert choices, all choices) over the MoE layers while
+    run() runs: each MoE layer's input routed again by `moe_route` under
+    the config the forward passes it."""
+    from repro_torch.models.layers import MoE, moe_route
+    tally = [0, 0]
+
+    def hook(mod, args):
+        x, cfg = args[0], args[1] if len(args) > 1 else mod.cfg
+        keep = moe_route(mod, cfg, x.reshape(-1, x.shape[-1]))[2]
+        tally[0] += int((~keep).sum())
+        tally[1] += keep.numel()
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, MoE)]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return tally
+
+
+def _float32(cfg, model):
+    """A float32 copy of `model` on its device."""
+    from repro_torch.models import lm as LM
+    return LM.from_state_dict(cfg, {k: v.float()
+                                    for k, v in model.state_dict().items()})
+
+
+def _moe_consistency(ctx, model, cfg, g, depth, float32=False):
+    """`_dense_consistency` with nothing dropped (`_no_drop`): with drops,
+    a prefill of T-1 positions and a full forward of T fill the experts'
+    queues differently. The dropped choices are counted (none). With
+    `float32`, on a float32 copy of the cut (TF32 off, as every forward
+    runs)."""
+    cfg, model = _cut(_no_drop(cfg), model, depth)
+    if float32:
+        model = _float32(cfg, model)
+    out = dict(dtype='float32' if float32 else 'bfloat16')
+
+    def run():
+        out.update(_dense_consistency(ctx, model, cfg, g, depth))
+    dropped, total = _moe_choices(model, run)
+    check(total > 0 and dropped == 0,
+          f'{dropped} of {total} choices dropped under capacity E/k')
+    return out
+
+
+def _moe_card_vs_cpu(ctx, model, cfg, g):
+    """The first two layers (layer 0 with its dense MLP, layer 1 with
+    the MoE) at full width, cast to float32, on the card and, copied, on
+    the CPU (TF32 off), at B = CHECK_BATCH, T = CHECK_LEN. Each block
+    runs on both devices from the card's input to it, so that a
+    difference is the block's own: each attention's output and cache
+    (one projection deep) within the CPU tests' model and cache bars,
+    each FFN's output within the model bars, and the logits from the
+    card's last hidden state. Expert choices may differ only at near
+    ties (MOE_TIE_MARGIN); such tokens are counted and left out of the
+    MoE output's comparison. Float32, because in bf16 MLA's softmax is
+    saturated under the stacked fan-in init (scores of some 350 at full
+    depth's std 1/sqrt(26)), so one rounding of q or c_kv apart moves a
+    token's attention by some 10% (PERF.md section 6)."""
+    torch = ctx['torch']
+    from repro_torch.kernels.platform import full_f32
+    from repro_torch.models import lm as LM
+    from repro_torch.models.layers import (MoE, _router_probs, _top_k,
+                                           gqa_attention, mla_attention,
+                                           rmsnorm)
+    cfg, model = _cut(cfg, model, 2)
+    model = _float32(cfg, model)
+    cpu = LM.from_state_dict(cfg, {k: v.cpu()
+                                   for k, v in model.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (CHECK_BATCH, CHECK_LEN), generator=g,
+                         device=ctx['dev'], dtype=torch.int32)
+    attend = mla_attention if cfg.attn == 'mla' else gqa_attention
+    names = tuple(LM.cache_struct(cfg, 0, 0))
+    out, ok = {}, True
+
+    def held(name, got, want, bars):
+        nonlocal ok
+        r, p, inside = _held(torch, got, want, **bars)
+        out[f'{name}_rel_norm'], out[f'{name}_max_over_scale'] = r, p
+        ok &= inside
+
+    t_a = time.perf_counter()
+    with torch.no_grad(), full_f32():
+        x = LM._embed_tokens(model, cfg, toks).to(torch.bfloat16)
+        pos = LM._positions(x)
+        for l, (lc, lp) in enumerate(zip(LM.all_layers(model),
+                                         LM.all_layers(cpu))):
+            h = rmsnorm(lc.ln1, x)
+            a, pair = attend(lc.attn, cfg, h, pos)
+            a_c, pair_c = attend(lp.attn, cfg, h.cpu(), pos.cpu())
+            held(f'attn{l}', a, a_c, DENSE_MODEL_BARS)
+            for name, got, want in zip(names, pair, pair_c):
+                held(f'{name}{l}', got, want, DENSE_CACHE_BARS)
+            x = x + a
+            f_in = rmsnorm(lc.ln2, x)
+            y, y_c = lc.ffn(f_in, cfg), lp.ffn(f_in.cpu(), cfg)
+            if isinstance(lc.ffn, MoE):
+                k = cfg.moe.top_k
+                xf = f_in.reshape(-1, cfg.d_model)
+                idx = _top_k(_router_probs(lc.ffn, xf), k)[1].sort(-1)[0]
+                probs = _router_probs(lp.ffn, xf.cpu())
+                top, idx_c = _top_k(probs, k + 1)
+                apart = (idx.cpu() != idx_c[:, :k].sort(-1)[0]).any(-1)
+                margin = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+                out['tokens_routed_apart'] = int(apart.sum())
+                out['largest_margin_apart'] = float(
+                    margin[apart].max()) if apart.any() else None
+                ok &= not bool((margin[apart] >= MOE_TIE_MARGIN).any())
+                same = ~apart.view(y.shape[:2])
+                held(f'ffn{l}', y[same.to(y.device)], y_c[same],
+                     DENSE_MODEL_BARS)
+            else:
+                held(f'ffn{l}', y, y_c, DENSE_MODEL_BARS)
+            x = x + y
+        hid = rmsnorm(model.ln_f, x)
+        held('logits', LM._last_logits(model, cfg, hid),
+             LM._last_logits(cpu, cfg, hid.cpu()), DENSE_MODEL_BARS)
+    out['seconds'] = time.perf_counter() - t_a
+    check(ok, f'card != CPU beyond the CPU tests\' bars: {out}')
+    return out
+
+
+def _moe_shares(ctx, model, cfg, prompts, prefill_busy_ms):
+    """CUDA-event ms of one MLA (or GQA) attention and one MoE block at
+    the prefill's shape, on the hidden state of the prompts' embeddings
+    through layer 0, and, times their layer counts, their estimated share
+    of a profiled prefill's device time."""
+    torch = ctx['torch']
+    from repro_torch.kernels.platform import full_f32
+    from repro_torch.models import lm as LM
+    from repro_torch.models.layers import (gqa_attention, mla_attention,
+                                           rmsnorm)
+    lay = model.layers[0]
+    attend = mla_attention if cfg.attn == 'mla' else gqa_attention
+    with torch.no_grad(), full_f32():
+        x = LM._embed_tokens(model, cfg, prompts).to(torch.bfloat16)
+        pos = LM._positions(x)
+        x, _ = LM._attn_layer(model.layer0, cfg, x, pos)
+        h = rmsnorm(lay.ln1, x)
+        f_in = rmsnorm(lay.ln2, x + attend(lay.attn, cfg, h, pos)[0])
+        attn_ms = time_ms(torch, lambda: attend(lay.attn, cfg, h, pos),
+                          reps=3)
+        moe_ms = time_ms(torch, lambda: lay.ffn(f_in, cfg), reps=3)
+    n_moe = cfg.n_layers - 1
+    busy = prefill_busy_ms or None
+    return dict(attn_ms=attn_ms, moe_ms=moe_ms,
+                attn_share=busy and cfg.n_layers * attn_ms / busy,
+                moe_share=busy and n_moe * moe_ms / busy)
+
+
+def _fan_in_scaled(torch, model):
+    """Scale the stacked layers' matrices of `model` in place from the
+    init's std 1/sqrt(L) (the reference's rule reads the fan-in from the
+    stacked layer axis, ROADMAP Queue 3) to 1/sqrt(in), one layer's
+    fan-in; the router keeps its own 0.02 and the norms their ones."""
+    stacked = len(model.layers)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if (name.startswith('layers.') and p.ndim >= 2
+                    and not name.endswith('.router')):
+                p.mul_(math.sqrt(stacked / p.shape[-2]))
+
+
+def _moe_model_row(ctx, arch, g, layers=None, profiled=False):
+    """The phase's record of one MoE model at full width and `layers`
+    layers (default: its depth), seeded weights drawn on the card: init,
+    serve at the lm phase's shapes into MOE_CAPACITY, the prefill's
+    dropped share, profiler windows (`profiled`), card against CPU at
+    2 layers, and the consistency checks: the reference's bar at 2
+    layers in float32, the fault bar at the model's depth in bf16."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.configs.registry import get
+    from repro_torch.models import lm as LM
+    cfg = get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM.init_model(cfg, seed=ctx['seed'], device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=g,
+                            device=dev, dtype=torch.int32)
+    _serve_lm(ctx, model, cfg, prompts[:, :64], 128, 2)   # warm
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    cache, gen, pre_s, dec_s, finite = _serve_lm(ctx, model, cfg, prompts,
+                                                 MOE_CAPACITY, LM_DECODE)
+    check(finite, f'{arch}: non-finite logits in prefill or decode')
+    launches = _counts()
+    check(not any(launches.values()),
+          f'a kernel of the port launched on the MoE path: {launches}')
+    row = dict(arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+               attn=cfg.attn, experts=cfg.moe.num_experts,
+               top_k=cfg.moe.top_k, shared=cfg.moe.shared_experts,
+               n_params=sum(p.numel() for p in model.parameters()),
+               init_seconds=init_s, init_peak_memory_gib=init_peak,
+               batch=LM_BATCH, prompt=LM_PROMPT, decode_steps=LM_DECODE,
+               capacity=MOE_CAPACITY,
+               cache_bytes=sum(c.numel() * c.element_size()
+                               for c in cache.values()),
+               prefill_seconds=pre_s,
+               prefill_tokens_per_s=LM_BATCH * LM_PROMPT / pre_s,
+               decode_ms_per_token=1e3 * dec_s / LM_DECODE,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               generated_ids_first_row=gen[0, :8].tolist())
+    del cache
+    dropped, total = _moe_choices(
+        model, lambda: LM.forward_prefill(model, cfg, {'tokens': prompts}))
+    row['prefill_dropped_share'] = dropped / total
+    row['prefill_choices'] = total
+    if profiled:
+        row.update(_profile_serving(ctx, model, cfg, prompts, MOE_CAPACITY))
+        row['prefill_shares'] = _moe_shares(
+            ctx, model, cfg, prompts,
+            row['profile_prefill']['device_busy_ms'])
+    row['card_vs_cpu'] = _moe_card_vs_cpu(ctx, model, cfg, g)
+    # Consistency. At the init's std 1/sqrt(L) MLA's softmax saturates
+    # (scores of some 350), so prefill + decode and the full forward,
+    # whose matrix products differ in shape and round apart by an ulp
+    # here and there, move apart at once in bf16 and decorrelate with
+    # depth (PERF.md section 6); the bf16 gaps at this init are
+    # recorded. The gates: the reference's bar (DENSE_PD_BAR) on the
+    # first two layers in float32 (the same tokens as the bf16 record),
+    # and the fault bar (DENSE_FAULT_BAR: a wrong cache slot, position or
+    # hand-off decorrelates the logits) at the model's depth in bf16 with
+    # the stacked matrices at one layer's fan-in (`_fan_in_scaled`).
+    state = g.get_state()
+    short = _moe_consistency(ctx, model, cfg, g, 2, float32=True)
+    g.set_state(state)
+    records = [_moe_consistency(ctx, model, cfg, g, 2),
+               _moe_consistency(ctx, model, cfg, g, cfg.n_layers)]
+    _fan_in_scaled(torch, model)
+    deep = _moe_consistency(ctx, model, cfg, g, cfg.n_layers)
+    deep['init'] = 'fan_in'
+    row['consistency'] = [short, *records, deep]
+    check(short['pd_max_abs_err'] <= DENSE_PD_BAR,
+          f'{arch}: prefill + decode off the full forward at depth 2: '
+          f'{short}')
+    check(deep['pd_rel_norm'] <= DENSE_FAULT_BAR,
+          f'{arch}: prefill + decode differ by a fault at depth '
+          f'{cfg.n_layers}: {deep}')
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_moe(ctx):
+    g = ctx['torch'].Generator(device=ctx['dev'])
+    g.manual_seed(ctx['seed'] + 11)
+    return dict(card=_card(),
+                deepseek=_moe_model_row(ctx, MOE_ARCH, g, profiled=True),
+                moonshot=_moe_model_row(ctx, MOE_WIDTH_ARCH, g,
+                                        MOE_WIDTH_LAYERS))
 
 
 # GRAD_BARS: the JAX package's own kernel-vs-scan gradient gap on the
@@ -3424,9 +3765,12 @@ def phase_time(ctx):
         out['bundle_qp_ms'] = time_ms(
             torch, lambda: solve_bundle_dual_torch(G, b, LAM, mask,
                                                    n_iter=128), reps=3)
-    out['bundle_step'] = _profile_bundle_step(ctx)
     ctx['rows'] = [_rank_counts_row(ctx), _pairwise_row(ctx),
                    ctx['wkv_row'], ctx['wkv_bwd_row']]
+    for row in ctx['rows']:
+        check(row['ms'] >= row['bound_ms'],
+              f'{row["name"]}: {row["ms"]} ms is below its bound of '
+              f'{row["bound_ms"]} ms: a misreading')
     return out
 
 
@@ -3514,7 +3858,7 @@ PHASES = (('build', phase_build), ('parity', phase_parity),
           ('sweep', phase_sweep), ('sparse', phase_sparse),
           ('stream', phase_stream), ('losses', phase_losses),
           ('refit', phase_refit), ('sharded', phase_sharded),
-          ('lm', phase_lm), ('dense', phase_dense),
+          ('lm', phase_lm), ('dense', phase_dense), ('moe', phase_moe),
           ('train', phase_train), ('dense_train', phase_dense_train),
           ('time', phase_time))
 

@@ -1,3 +1,3 @@
 # Model configurations of the port: own copies of the reference's
-# dataclasses (base.py), the rwkv6-3b and dense-attention configs and the
-# reduced-config rule.
+# dataclasses (base.py), the rwkv6-3b, dense-attention and MoE configs
+# and the reduced-config rule.

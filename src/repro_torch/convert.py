@@ -21,7 +21,10 @@ numpy arrays and returns the port's `state_dict` in bf16, for
 decode cache (RWKV-6 states, or attention keys and values), so both
 packages decode from the same state. `pad_cache(cache, capacity)` grows a
 prefill's attention cache (S = T positions) to a decode capacity, zeros
-past T, as the reference's serving loop and tests pad theirs.
+past T, as the reference's serving loop and tests pad theirs. A model
+with a dense layer 0 declared apart carries its 'layer0' keys across
+as they are, and its cache's first layer is layer 0's, in both
+packages.
 `train_state_from_reference(state, cfg)` carries a whole train state
 (parameters, AdamW master/m/v and count, step), so both packages take
 the same train step from it.
@@ -144,8 +147,9 @@ def _pick(tree, part):
 
 def lm_cache_from_reference(cache, *, device=None):
     """The port's decode cache from the reference's: 's' float32,
-    'tm_last' and 'cm_last' bf16 (RWKV-6), or 'k' and 'v' bf16
-    (attention), layers stacked as in both packages."""
+    'tm_last' and 'cm_last' bf16 (RWKV-6), 'k' and 'v' bf16 (attention),
+    or 'ckv' and 'krope' bf16 (MLA), layers stacked as in both
+    packages."""
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.array(v, np.float32)).to(
         dev, torch.float32 if k == 's' else torch.bfloat16)
@@ -154,13 +158,14 @@ def lm_cache_from_reference(cache, *, device=None):
 
 def pad_cache(cache, capacity: int):
     """A decode cache of `capacity` positions from a prefill's cache: the
-    attention entries 'k' and 'v' (L, B, T, G, hd) are copied into zeros
-    of (L, B, capacity, G, hd) on their device; any other entry (an
-    RWKV-6 state, which does not grow) is passed through. Decode then
-    writes into the result in place."""
+    attention entries 'k' and 'v' (L, B, T, G, hd), or MLA's 'ckv' (L, B,
+    T, lora) and 'krope' (L, B, T, r), are copied into zeros of `capacity`
+    positions on their device; any other entry (an RWKV-6 state, which
+    does not grow) is passed through. Decode then writes into the result
+    in place."""
     out = {}
     for key, val in cache.items():
-        if key in ('k', 'v'):
+        if key in ('k', 'v', 'ckv', 'krope'):
             t = val.shape[2]
             if t > capacity:
                 raise ValueError(f'a cache of {t} positions does not fit a '

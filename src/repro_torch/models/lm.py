@@ -1,17 +1,22 @@
 """Decoder-LM assembly: parameter declarations, the layer stack, and the
-train / prefill / decode forwards, for the RWKV-6 family and the dense
-attention (GQA) family with its vision and audio frontends.
+train / prefill / decode forwards, for the RWKV-6 family, the dense
+attention (GQA) family with its vision and audio frontends, and the MoE
+family (MLA or GQA attention; routed and shared experts; a dense layer
+0).
 
-The port of the reference's `models/lm.py`, rwkv6 and gqa branches; MLA
-and MoE (ROADMAP Queue 1 item 13(c)(ii)) and the Mamba hybrid (13(c)(iii))
-raise. The reference scans one layer body over stacked parameters; the
-port holds the layers unstacked in an `nn.ModuleList` and loops over
-them. Declarations stay stacked (`model_defs`), so both packages count
-and draw the same leaves, and `state_dict_from_tree` unstacks a stacked
-tree into the port's `state_dict` keys ('layers.<l>.tm.wr',
-'layers.<l>.attn.wq', ...).
+The port of the reference's `models/lm.py` but its Mamba hybrid (ROADMAP
+Queue 1 item 13(c)(iii)), which raises. The reference scans one layer
+body over stacked parameters; the port holds the layers unstacked in an
+`nn.ModuleList` and loops over them. Declarations stay stacked
+(`model_defs`), so both packages count and draw the same leaves, and
+`state_dict_from_tree` unstacks a stacked tree into the port's
+`state_dict` keys ('layers.<l>.tm.wr', 'layers.<l>.attn.wq', ...). A
+config with `dense_d_ff_first` declares its first layer apart, as
+'layer0' (a dense MLP of that width), before the L-1 stacked 'layers';
+the forwards run it first and its cache entry comes first.
 
-Both families train (`train.trainer`) and serve (`launch/steps.py`).
+RWKV-6 and dense GQA train (`train.trainer`); every family serves
+(`launch/steps.py`).
 The forwards take the model where the reference takes its parameter
 tree, and the config separately, so that one set of weights can run
 either WKV route. `forward_train` runs under autograd, each layer
@@ -28,10 +33,12 @@ of tokens, in prefill and in decode.
 The decode cache keeps the reference's stacked layout. RWKV-6: 's' (L,
 B, H, K, K) float32, 'tm_last' and 'cm_last' (L, B, d) bf16, the last
 token of each layer's normed inputs; a decode step returns a new cache.
-Attention: 'k' and 'v' (L, B, S, G, hd) bf16 of a fixed capacity S; a
-prefill returns them at S = T (`convert.pad_cache` grows them to a
-capacity), and a decode step writes the new position into the caller's
-cache tensors in place and returns the same dict (`layers.gqa_attention`).
+Attention: 'k' and 'v' (L, B, S, G, hd) bf16 of a fixed capacity S, or
+for MLA 'ckv' (L, B, S, lora) and 'krope' (L, B, S, r); a prefill returns
+them at S = T (`convert.pad_cache` grows them to a capacity), and a
+decode step writes the new position into the caller's cache tensors in
+place and returns the same dict (`layers.gqa_attention`,
+`layers.mla_attention`).
 """
 
 from __future__ import annotations
@@ -45,8 +52,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.platform import full_f32, resolve_device
 from . import rwkv6 as R
-from .layers import (MLP, Attention, RMSNorm, attention_defs, gqa_attention,
-                     mlp, mlp_defs, rmsnorm, rmsnorm_defs)
+from .layers import (MLA, MLP, Attention, MoE, RMSNorm, attention_defs,
+                     gqa_attention, mla_attention, mla_defs, mlp_defs,
+                     moe_defs, rmsnorm, rmsnorm_defs)
 from .params import ParamDef, add_params, init_params, stack_tree
 
 f32 = torch.float32
@@ -58,16 +66,12 @@ TensorSpec = collections.namedtuple('TensorSpec', 'shape dtype')
 
 
 def check_family(cfg):
-    if cfg.attn == 'mla' or cfg.is_moe or cfg.dense_d_ff_first:
-        raise NotImplementedError(
-            f'{cfg.name}: MLA and MoE are not ported yet (ROADMAP Queue 1 '
-            'item 13(c)(ii)); the port runs RWKV-6 and dense GQA attention')
     if cfg.hybrid_period > 0:
         raise NotImplementedError(
             f'{cfg.name}: the Mamba hybrid is not ported yet (ROADMAP Queue '
-            '1 item 13(c)(iii)); the port runs RWKV-6 and dense GQA '
-            'attention')
-    if cfg.attn not in ('rwkv6', 'gqa'):
+            '1 item 13(c)(iii)); the port runs RWKV-6, GQA and MLA '
+            'attention, and MoE')
+    if cfg.attn not in ('rwkv6', 'gqa', 'mla'):
         raise ValueError(f'{cfg.name}: unknown attention {cfg.attn!r}')
 
 
@@ -79,15 +83,32 @@ def padded_vocab(cfg) -> int:
 # ------------------------------------------------------------- declarations
 
 
-def _layer_defs(cfg):
+def _ffn_defs(cfg, l: int):
+    if cfg.layer_is_moe(l):
+        return moe_defs(cfg)
+    if cfg.dense_d_ff_first and l == 0:
+        return mlp_defs(cfg, d_ff=cfg.dense_d_ff_first)
+    return mlp_defs(cfg)
+
+
+def _layer_defs(cfg, l: int):
+    """Layer l's declaration; the stacked layers are declared from one
+    index (1 after a separate layer 0, else 0), as the reference's are."""
     defs = {'ln1': rmsnorm_defs(cfg.d_model),
             'ln2': rmsnorm_defs(cfg.d_model)}
     if cfg.attn == 'rwkv6':
         defs.update(R.rwkv_defs(cfg))
     else:
-        defs['attn'] = attention_defs(cfg)
-        defs['ffn'] = mlp_defs(cfg)
+        defs['attn'] = (mla_defs(cfg) if cfg.attn == 'mla'
+                        else attention_defs(cfg))
+        defs['ffn'] = _ffn_defs(cfg, l)
     return defs
+
+
+def _stacked_from(cfg) -> int:
+    """The index whose declaration the stacked 'layers' share: 1 when
+    layer 0 is declared apart (`dense_d_ff_first`), else 0."""
+    return 1 if cfg.dense_d_ff_first else 0
 
 
 def _top_defs(cfg):
@@ -106,7 +127,10 @@ def model_defs(cfg):
     check_family(cfg)
     defs = _top_defs(cfg)
     defs['ln_f'] = rmsnorm_defs(cfg.d_model)
-    defs['layers'] = stack_tree(_layer_defs(cfg), cfg.n_layers)
+    first = _stacked_from(cfg)
+    if first:
+        defs['layer0'] = _layer_defs(cfg, 0)
+    defs['layers'] = stack_tree(_layer_defs(cfg, first), cfg.n_layers - first)
     return defs
 
 
@@ -129,15 +153,22 @@ class RWKVLayer(nn.Module):
 
 
 class AttnLayer(nn.Module):
-    """One attention layer: ln1, attn (GQA), ln2, ffn (MLP)."""
+    """One attention layer, declared as layer l: ln1, attn (GQA, or MLA),
+    ln2, ffn (MLP, of width `dense_d_ff_first` for a layer 0 declared
+    apart, or MoE)."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, l=0, device=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = RMSNorm(cfg.d_model, device)
-        self.attn = Attention(cfg, device)
+        self.attn = (MLA if cfg.attn == 'mla' else Attention)(cfg, device)
         self.ln2 = RMSNorm(cfg.d_model, device)
-        self.ffn = MLP(cfg, device)
+        if cfg.layer_is_moe(l):
+            self.ffn = MoE(cfg, device)
+        else:
+            first = cfg.dense_d_ff_first and l == 0
+            self.ffn = MLP(cfg, device,
+                           d_ff=cfg.dense_d_ff_first if first else None)
 
     def forward(self, x, positions, cache=None, cache_len=None,
                 decode=False):
@@ -146,10 +177,10 @@ class AttnLayer(nn.Module):
 
 
 class LM(nn.Module):
-    """The decoder LM: embed, layers (unstacked), ln_f, lm_head (unless
-    tied) and score_head, with the reference's keys, in bf16. Parameters
-    are left uninitialized; `init_model` and `from_state_dict` fill
-    them."""
+    """The decoder LM: embed, layer0 (with `dense_d_ff_first`), layers
+    (unstacked), ln_f, lm_head (unless tied) and score_head, with the
+    reference's keys, in bf16. Parameters are left uninitialized;
+    `init_model` and `from_state_dict` fill them."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -157,18 +188,31 @@ class LM(nn.Module):
         self.cfg = cfg
         add_params(self, _top_defs(cfg), device)
         self.ln_f = RMSNorm(cfg.d_model, device)
-        layer = RWKVLayer if cfg.attn == 'rwkv6' else AttnLayer
-        self.layers = nn.ModuleList(layer(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        first = _stacked_from(cfg)
+        if cfg.attn == 'rwkv6':
+            self.layers = nn.ModuleList(RWKVLayer(cfg, device)
+                                        for _ in range(cfg.n_layers))
+        else:
+            if first:
+                self.layer0 = AttnLayer(cfg, 0, device)
+            self.layers = nn.ModuleList(AttnLayer(cfg, first, device)
+                                        for _ in range(cfg.n_layers - first))
 
     def forward(self, tokens):
         return forward_train(self, self.cfg, {'tokens': tokens})
 
 
+def all_layers(params):
+    """The model's layers in order: layer0 (where declared apart), then
+    the stacked ones."""
+    first = getattr(params, 'layer0', None)
+    return ([first] if first is not None else []) + list(params.layers)
+
+
 def state_dict_from_tree(tree, prefix=''):
     """The port's state_dict from a (stacked) parameter tree in the
     reference's layout: the leading layer axis of 'layers' is unstacked
-    (as views, no copy)."""
+    (as views, no copy); 'layer0' keeps its keys."""
     out = {}
     for key, val in tree.items():
         name = prefix + key
@@ -210,8 +254,8 @@ def init_model(cfg, seed: int = 0, device=None, dtype=bf16) -> LM:
 
 def cache_struct(cfg, batch: int, seq: int, dtype=bf16):
     """TensorSpecs of the decode cache (also used to allocate). The RWKV-6
-    state does not grow with `seq`; the attention cache holds `seq`
-    positions."""
+    state does not grow with `seq`; the attention cache (MLA's latent
+    and rope key) holds `seq` positions."""
     check_family(cfg)
     n = cfg.n_layers
     if cfg.attn == 'rwkv6':
@@ -219,6 +263,9 @@ def cache_struct(cfg, batch: int, seq: int, dtype=bf16):
         return {'s': TensorSpec((n, batch, h, k, k), f32),
                 'tm_last': TensorSpec((n, batch, d), dtype),
                 'cm_last': TensorSpec((n, batch, d), dtype)}
+    if cfg.attn == 'mla':
+        return {'ckv': TensorSpec((n, batch, seq, cfg.mla_kv_lora), dtype),
+                'krope': TensorSpec((n, batch, seq, cfg.mla_rope_dim), dtype)}
     kv = TensorSpec((n, batch, seq, cfg.n_kv_heads, cfg.head_dim), dtype)
     return {'k': kv, 'v': kv}
 
@@ -247,12 +294,20 @@ def _rwkv_layer(lp, cfg, x, state=None, tm_last=None, cm_last=None):
 
 def _attn_layer(lp, cfg, x, positions, cache=None, cache_len=None,
                 decode=False):
-    h, new_kv = gqa_attention(lp.attn, cfg, rmsnorm(lp.ln1, x), positions,
-                              cache_kv=cache, cache_len=cache_len,
-                              decode=decode)
+    """One attention layer under `cfg`: GQA or MLA, then the MLP or the
+    MoE, called as its module (so that forward hooks see the FFN's
+    input). Returns (x, the layer's cache pair)."""
+    h = rmsnorm(lp.ln1, x)
+    if cfg.attn == 'mla':
+        h, new_cache = mla_attention(lp.attn, cfg, h, positions, cache=cache,
+                                     cache_len=cache_len, decode=decode)
+    else:
+        h, new_cache = gqa_attention(lp.attn, cfg, h, positions,
+                                     cache_kv=cache, cache_len=cache_len,
+                                     decode=decode)
     x = x + h
-    x = x + mlp(lp.ffn, cfg, rmsnorm(lp.ln2, x))
-    return x, new_kv
+    x = x + lp.ffn(rmsnorm(lp.ln2, x), cfg)
+    return x, new_cache
 
 
 def _embed_tokens(params, cfg, tokens):
@@ -311,7 +366,7 @@ def forward_train(params, cfg, batch, remat: str = 'layer'):
     with full_f32():
         x = _assemble_inputs(params, cfg, batch).to(bf16)
         positions = _positions(x)
-        for lp in params.layers:
+        for lp in all_layers(params):
             if remat == 'layer' and torch.is_grad_enabled():
                 x = checkpoint(_layer_out, lp, cfg, x, positions,
                                use_reentrant=False)
@@ -347,19 +402,20 @@ def chunked_xent(params, cfg, hidden, targets, chunk: int = 512):
 @torch.no_grad()
 def forward_prefill(params, cfg, batch):
     """Causal forward that also returns the populated cache (attention:
-    k and v at capacity S = T) and the last-position logits
-    (B, vocab_padded) float32."""
+    k and v, or MLA's ckv and krope, at capacity S = T; layer 0's first)
+    and the last-position logits (B, vocab_padded) float32."""
+    names = tuple(cache_struct(cfg, 0, 0))
     with full_f32():
         x = _assemble_inputs(params, cfg, batch).to(bf16)
         positions = _positions(x)
         cache = collections.defaultdict(list)
-        for lp in params.layers:
+        for lp in all_layers(params):
             if cfg.attn == 'rwkv6':
                 x, st, tm, cm = _rwkv_layer(lp, cfg, x)
                 new = {'s': st, 'tm_last': tm, 'cm_last': cm}
             else:
-                x, (k, v) = _attn_layer(lp, cfg, x, positions)
-                new = {'k': k, 'v': v}
+                x, pair = _attn_layer(lp, cfg, x, positions)
+                new = dict(zip(names, pair))
             for key, val in new.items():
                 cache[key].append(val)
         x = rmsnorm(params.ln_f, x)
@@ -375,8 +431,10 @@ def forward_decode(params, cfg, cache, batch, pos):
 
     RWKV-6 needs no position and returns a new state cache. Attention
     writes the new key and value at `pos` into `cache['k']` and
-    `cache['v']` in place (their capacity must exceed `pos`) and returns
-    the caller's dict, so a step copies nothing of the cache."""
+    `cache['v']` in place (MLA: its latent and rope key into
+    `cache['ckv']` and `cache['krope']`; their capacity must exceed
+    `pos`) and returns the caller's dict, so a step copies nothing of the
+    cache."""
     with full_f32():
         if cfg.frontend == 'audio':
             x = batch['frame_embeds'].to(bf16)                  # (B, 1, d)
@@ -395,9 +453,10 @@ def forward_decode(params, cfg, cache, batch, pos):
         else:
             pos = int(pos)
             positions = torch.full((x.shape[0], 1), pos, device=x.device)
-            for l, lp in enumerate(params.layers):
+            names = tuple(cache_struct(cfg, 0, 0))
+            for l, lp in enumerate(all_layers(params)):
                 x, _ = _attn_layer(lp, cfg, x, positions,
-                                   cache=(cache['k'][l], cache['v'][l]),
+                                   cache=tuple(cache[k][l] for k in names),
                                    cache_len=pos, decode=True)
         x = rmsnorm(params.ln_f, x)
         logits = _last_logits(params, cfg, x)

@@ -89,8 +89,13 @@ def make_train_step(cfg, tcfg):
     (rank_hinge), on the parameters' device.
 
     The RWKV-6 and dense attention (GQA) families train, their gradients
-    held to the reference's; MLA, MoE and the Mamba hybrid raise, as they
-    do in `models.lm` (ROADMAP Queue 1 item 13(c)(ii) and (iii))."""
+    held to the reference's. MLA, MoE and a dense layer 0 serve but do not
+    train yet (ROADMAP Queue 1 item 13(c)(ii)); the Mamba hybrid raises
+    in `models.lm` (13(c)(iii))."""
+    if cfg.attn == 'mla' or cfg.is_moe or cfg.dense_d_ff_first:
+        raise NotImplementedError(
+            f'{cfg.name}: training MLA and MoE is not ported yet (ROADMAP '
+            'Queue 1 item 13(c)(ii)); they serve through launch/steps.py')
     LM.check_family(cfg)
     schedule = make_schedule(cfg, tcfg)
 

@@ -9,7 +9,8 @@ r-level counts, the accumulator's budget), the reduced RWKV-6 prefill
 and train step on the card against the CPU, the sharded oracle on a
 one-rank NCCL group against the CPU, the reduced dense attention model's
 prefill, decode and train step (its frontends too) and the attention's
-float32 gradients against the CPU.
+float32 gradients against the CPU, and the MoE block and MLA prefill and
+decode against the CPU.
 
 Every test here needs a CUDA device (Hopper, for the sm_90a kernels) and
 is marked `cuda`; without one it skips. This module imports neither JAX
@@ -1284,3 +1285,98 @@ def test_blockwise_attention_f32_grads_on_the_card_match_the_cpu(
         assert bool(torch.isfinite(got).all())
         err = float((got.cpu() - want).abs().max())
         assert err <= 1e-5 * float(want.abs().max())
+
+
+# -- MLA and MoE serving (slice 13) -------------------------------------------
+
+
+def _moe_block(dev, cf):
+    """The reduced deepseek-v2-lite-16b MoE block (4 experts top-2, one
+    shared) at capacity factor `cf`, its seeded init on the CPU and
+    copied to `dev`."""
+    import dataclasses
+    from repro_torch.models.layers import MoE, moe_defs
+    from repro_torch.models.params import init_params
+    cfg = reduced('deepseek-v2-lite-16b')
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    sd = LM.state_dict_from_tree(init_params(
+        moe_defs(cfg), torch.Generator().manual_seed(3)))
+    blocks = []
+    for d in ('cpu', dev):
+        mod = MoE(cfg, device='meta')
+        mod.load_state_dict({k: v.to(d) for k, v in sd.items()}, assign=True)
+        blocks.append(mod)
+    return cfg, blocks
+
+
+@pytest.mark.parametrize('cf', [2.0, 0.5])
+def test_moe_block_on_the_card_matches_the_cpu(cf, cuda_device):
+    """The MoE block on the same bf16 input on both devices, without and
+    with dropped choices (capacity factor 0.5): experts, keep mask and
+    dispatch table equal (every token's k-th and (k+1)-th router
+    probabilities 1e-4 apart, relative, checked on the CPU; float32 sums
+    in another order move them by some 1e-7), the output within the CPU
+    tests' model bars (3% in relative norm, 5% of the largest value)."""
+    from repro_torch.models.layers import _router_probs, moe_ffn, moe_route
+    cfg, (cpu, card) = _moe_block(cuda_device, cf)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((4, 64, cfg.d_model), generator=g).to(torch.bfloat16)
+    k = cfg.moe.top_k
+    with torch.no_grad():
+        probs = _router_probs(cpu, x.reshape(-1, cfg.d_model))
+        top = probs.sort(-1, descending=True)[0]
+        margin = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+        assert float(margin.min()) >= 1e-4
+        want = moe_route(cpu, cfg, x.reshape(-1, cfg.d_model))
+        got = moe_route(card, cfg, x.reshape(-1, cfg.d_model).to(
+            cuda_device))
+        for name, a, b in zip(('gate', 'idx', 'keep', 'slot', 'table'),
+                              got, want):
+            if name == 'gate':
+                assert float((a.cpu() - b).abs().max()) <= 1e-6
+            else:
+                assert torch.equal(a.cpu(), b), name
+        assert bool(want[2].all()) == (cf == 2.0)
+        y = moe_ffn(card, cfg, x.to(cuda_device))
+        y_cpu = moe_ffn(cpu, cfg, x)
+    assert y.dtype == torch.bfloat16
+    _inside_bars(y, y_cpu, 0.03, 0.05)
+
+
+def test_mla_prefill_and_decode_on_the_card_match_the_cpu(cuda_device):
+    """The reduced deepseek-v2-lite-16b MLA block on the same bf16 inputs
+    on both devices: a causal prefill of 40 positions (output within the
+    model bars, c_kv and k_rope within the cache bars, 1% and 2%), then
+    three decode steps into a cache of 4500 positions (three blocks of
+    2048, the visited ones projected), each written in place."""
+    from repro_torch.models.layers import MLA, mla_defs
+    from repro_torch.models.params import init_params
+    cfg = reduced('deepseek-v2-lite-16b')
+    tree = init_params(mla_defs(cfg), torch.Generator().manual_seed(5))
+    mods = {}
+    for dev in ('cpu', cuda_device):
+        mods[dev] = MLA(cfg, device='meta')
+        mods[dev].load_state_dict({k: v.to(dev) for k, v in tree.items()},
+                                  assign=True)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 43, cfg.d_model), generator=g).to(torch.bfloat16)
+    pos = torch.arange(43).expand(2, 43)
+    out = {}
+    with torch.no_grad():
+        for dev, mod in mods.items():
+            xd, pd = x.to(dev), pos.to(dev)
+            y, (ckv, kr) = mod(xd[:, :40], pd[:, :40])
+            cache = [t.new_zeros((2, 4500, t.shape[-1])) for t in (ckv, kr)]
+            cache[0][:, :40], cache[1][:, :40] = ckv, kr
+            out[str(dev)] = [y, ckv, kr]
+            for p in range(40, 43):
+                y, pair = mod(xd[:, p:p + 1], pd[:, p:p + 1], tuple(cache),
+                              p, True)
+                assert pair[0] is cache[0] and pair[1] is cache[1]
+                out[str(dev)].append(y)
+            out[str(dev)] += cache
+    for i, (got, want) in enumerate(zip(out[str(cuda_device)],
+                                        out['cpu'])):
+        bars = (0.01, 0.02) if i in (1, 2, 6, 7) else (0.03, 0.05)
+        _inside_bars(got, want, *bars)

@@ -48,6 +48,7 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import MoEConfig, TrainConfig  # noqa: E402
 from repro_torch.configs.reduced import reduced  # noqa: E402
 from repro_torch.launch import steps as TS  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import lm as LM  # noqa: E402
 from repro_torch.models.params import count_params  # noqa: E402
 from repro_torch.train.trainer import make_train_step  # noqa: E402
@@ -56,8 +57,8 @@ from torch_parity import n, t, torch_one_thread  # noqa: E402,F401
 SHD = NoSharding()
 ARCHS = ('qwen2.5-3b', 'minicpm-2b', 'command-r-plus-104b',
          'nemotron-4-340b', 'internvl2-26b', 'musicgen-medium')
-UNPORTED = ('jamba-1.5-large-398b', 'deepseek-v2-lite-16b',
-            'moonshot-v1-16b-a3b', 'ranksvm-linear')
+MOE_ARCHS = ('deepseek-v2-lite-16b', 'moonshot-v1-16b-a3b')
+UNPORTED = ('jamba-1.5-large-398b', 'ranksvm-linear')
 B, S = 2, 32
 MODEL_BARS = dict(rel=0.03, peak=0.05)
 CACHE_BARS = dict(rel=0.01, peak=0.02)
@@ -132,7 +133,8 @@ def test_configs_are_the_reference_copies():
                 == dataclasses.asdict(j_registry.get(arch)))
         assert (dataclasses.asdict(reduced(arch))
                 == dataclasses.asdict(j_reduced(arch)))
-    assert set(registry.ARCHS) == set(ARCHS) | {'rwkv6-3b'}
+    assert set(registry.ARCHS) == (set(ARCHS) | set(MOE_ARCHS)
+                                   | {'rwkv6-3b'})
     assert set(registry.ARCHS) | registry.UNPORTED == (
         set(j_registry.ARCHS) | set(j_registry.EXTRA_ARCHS))
     for arch in UNPORTED:
@@ -266,7 +268,8 @@ def test_init_follows_the_reference_rule():
 
 def test_training_the_unported_families_raises():
     """The dense configs train (tests/test_torch_dense_train*.py); MLA,
-    MoE and the Mamba hybrid raise in `make_train_step`, naming their
+    MoE and a dense layer 0, which serve (tests/test_torch_moe_lm.py),
+    and the Mamba hybrid raise in `make_train_step`, naming their
     ROADMAP items."""
     base = reduced('qwen2.5-3b')
     moe = MoEConfig(num_experts=4, top_k=2, moe_d_ff=32)
@@ -281,15 +284,24 @@ def test_training_the_unported_families_raises():
 
 
 def test_unported_families_raise_in_the_model():
+    """MLA, MoE and a dense layer 0 build (declarations, module, cache);
+    only the Mamba hybrid raises, naming 13(c)(iii)."""
     base = reduced('qwen2.5-3b')
     moe = MoEConfig(num_experts=4, top_k=2, moe_d_ff=32)
-    for cfg in (dataclasses.replace(base, attn='mla', mla_kv_lora=32),
-                dataclasses.replace(base, moe=moe),
-                dataclasses.replace(base, dense_d_ff_first=64)):
-        with pytest.raises(NotImplementedError, match='13\\(c\\)\\(ii\\)'):
-            LM.model_defs(cfg)
-    with pytest.raises(NotImplementedError, match='13\\(c\\)\\(iii\\)'):
-        LM.LM(dataclasses.replace(base, hybrid_period=8), device='meta')
+    for cfg, cache in (
+            (dataclasses.replace(base, attn='mla', mla_kv_lora=32),
+             ['ckv', 'krope']),
+            (dataclasses.replace(base, moe=moe), ['k', 'v']),
+            (dataclasses.replace(base, dense_d_ff_first=64), ['k', 'v'])):
+        defs = LM.model_defs(cfg)
+        model = LM.LM(cfg, device='meta')
+        assert len(LM.all_layers(model)) == cfg.n_layers
+        assert ('layer0' in defs) == bool(cfg.dense_d_ff_first)
+        assert sorted(LM.cache_struct(cfg, 1, 8)) == cache
+    hybrid = dataclasses.replace(base, hybrid_period=8)
+    for build in (LM.model_defs, lambda c: LM.LM(c, device='meta')):
+        with pytest.raises(NotImplementedError, match='13\\(c\\)\\(iii\\)'):
+            build(hybrid)
 
 
 def test_pad_cache():
@@ -319,4 +331,4 @@ def test_module_forwards_are_the_functions():
         want, (k2, v2) = LM._attn_layer(lay, cfg, x, positions)
         assert torch.equal(got, want) and torch.equal(k, k2)
         assert torch.equal(v, v2)
-        assert torch.equal(lay.ffn(x), LM.mlp(lay.ffn, cfg, x))
+        assert torch.equal(lay.ffn(x), TL.mlp(lay.ffn, cfg, x))

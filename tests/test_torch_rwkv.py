@@ -115,7 +115,7 @@ def test_configs_are_the_reference_copies():
             == dataclasses.asdict(j_rwkv6_3b.config()))
     assert TB.shapes_for(registry.get('rwkv6-3b'))[-1].name == 'long_500k'
     with pytest.raises(NotImplementedError, match='item 13\\(c\\)'):
-        registry.get('deepseek-v2-lite-16b')
+        registry.get('jamba-1.5-large-398b')
     with pytest.raises(KeyError):
         registry.get('no-such-arch')
 
