@@ -5,9 +5,9 @@ regularization path, incrementally retrained and resumed from
 checkpoints, split over a mesh of ranks, and RankSVM serving; RWKV-6
 serving through the WKV forward kernel, dense GQA attention serving
 (qwen2.5-3b), MLA and MoE serving (deepseek-v2-lite-16b,
-moonshot-v1-16b-a3b; no kernel of the port lies on these two paths),
-RWKV-6 training through both WKV kernels, and dense GQA attention
-training.
+moonshot-v1-16b-a3b), RWKV-6 training through both WKV kernels, dense
+GQA attention training, and MLA and MoE training (no kernel of the port
+lies on the attention, MLA and MoE paths).
 
     python3 chip_smoke.py [--seed 0]
 
@@ -276,7 +276,33 @@ line; any failure ends the run with a non-zero exit code:
            musicgen-medium (512 audio frames) at full width and 2
            layers, loss and gnorm finite. No kernel of the port lies on
            this path. Releases each model.
-21. time   where an iteration's time goes at the main shapes (CUDA
+21. moe_train  MLA and MoE training: deepseek-v2-lite-16b at full width
+           and MOE_TRAIN_LAYERS = 5 layers (the dense layer 0 and four MoE
+           layers, 2.84e9 parameters: its 27 layers' train state, 234 GiB,
+           does not fit the card), seeded weights with the stacked
+           matrices at std 1/sqrt(fan-in). First the first two layers
+           (layer 0, one MoE layer) at B = 1, T = 256 on the card against
+           a CPU copy: every MoE call (forward and recompute) routes every
+           token alike on both devices (the count routed apart printed,
+           and it must be 0), then the bf16 lm loss within 2e-3 and every
+           leaf's float32 gradient within DENSE_GRAD_BARS (the
+           embedding's within EMBED_GRAD_BARS). Then `make_train_step`
+           (remat='layer', AdamW, lr 3e-4, one warmup step) at B = 4 x
+           T = 4096 for three lm and two rank_hinge steps from --seed:
+           loss, gnorm and lr finite; the router, the expert of the first
+           MoE layer that took most tokens, a shared expert, w_uk, w_uv,
+           layer 0's MLP and the score head moved in weights and masters;
+           the peak under the card's memory; no kernel of the port
+           launched. Prints tokens/s, seconds a step, the peak, step 1's
+           dropped share and busiest expert, a profiler window over the
+           last lm step with MLA's and the MoE's estimated shares of its
+           device time (each block's forward and forward-plus-backward
+           timed alone at the step's shape, times its layers), and the
+           peak of `loss_and_grads` with layer 0 checkpointed (the port)
+           and outside the checkpoint (the reference). Then one lm step
+           of moonshot-v1-16b-a3b at full width and 3 layers at the same
+           batch, loss and gnorm finite. Releases each model.
+22. time   where an iteration's time goes at the main shapes (CUDA
            events): score matvec, both counting paths, transpose matvec,
            one bundle QP (the profiler window over device-driver bundle
            steps is the path phase's `bundle_step_single`). Each
@@ -297,6 +323,7 @@ between checkpoints; the pairwise kernel's candidate splits), and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -304,6 +331,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -3177,7 +3205,11 @@ def _dense_grad_check(ctx, model, cfg, g):
     same weights: the lm loss in bf16 within the bf16 loss bar (2e-3),
     and every leaf's gradient of the weights in float32 (remat='layer',
     TF32 off) within DENSE_GRAD_BARS, the embedding's within
-    EMBED_GRAD_BARS."""
+    EMBED_GRAD_BARS. For a MoE config the float32 passes' MoE calls
+    (forward and recompute) are recorded on both devices and each
+    routed by its device's own input and router: before any gradient is
+    compared, no token may go to other experts on the card than on the
+    CPU (`_routing_apart`)."""
     torch = ctx['torch']
     from repro_torch.configs.base import TrainConfig
     from repro_torch.kernels.platform import full_f32
@@ -3190,18 +3222,23 @@ def _dense_grad_check(ctx, model, cfg, g):
     tcfg = TrainConfig(remat='layer')
     out = dict(depth=2, batch=GRAD_BATCH, seq=GRAD_LEN)
     t_a = time.perf_counter()
-    grads = {}
+    grads, calls = {}, {}
     for where, dev in (('card', ctx['dev']), ('cpu', 'cpu')):
         state = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
         on = {k: v.to(dev) for k, v in batch.items()}
         with torch.no_grad():
             out[f'loss_{where}'] = float(loss_fn(
                 LM.from_state_dict(cfg, state), cfg, tcfg, on))
-        with full_f32():
-            _, grads[where] = loss_and_grads(LM.from_state_dict(
-                cfg, {k: v.float() for k, v in state.items()}), cfg, tcfg,
-                on)
+        f32 = LM.from_state_dict(cfg, {k: v.float() for k, v in
+                                       state.items()})
+        with full_f32(), _moe_inputs(f32) as calls[where]:
+            _, grads[where] = loss_and_grads(f32, cfg, tcfg, on)
     out['seconds'] = time.perf_counter() - t_a
+    if cfg.is_moe:
+        out['routing'] = _routing_apart(ctx, cfg, calls['card'],
+                                        calls['cpu'])
+        check(out['routing']['tokens_routed_apart'] == 0,
+              f'card and CPU route apart: {out["routing"]}')
     card, cpu = grads['card'], grads['cpu']
     out.update(_leaf_gaps({k: v for k, v in card.items() if k != 'embed'},
                           {k: v for k, v in cpu.items() if k != 'embed'}))
@@ -3217,6 +3254,48 @@ def _dense_grad_check(ctx, model, cfg, g):
                   for key in bars),
           f'card gradients outside the bars at depth 2: {out}')
     return out
+
+
+@contextlib.contextmanager
+def _moe_inputs(model):
+    """Records (input, router) of every MoE call of `model` made inside,
+    into the yielded list, in call order."""
+    from repro_torch.models.layers import MoE
+    calls = []
+
+    def hook(mod, args):
+        calls.append((args[0].detach().reshape(-1, args[0].shape[-1]),
+                      mod.router.detach()))
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, MoE)]
+    try:
+        yield calls
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _routing_apart(ctx, cfg, card, cpu):
+    """Call by call, the card's choices from the card's MoE inputs against
+    the CPU's from the CPU's: the tokens routed apart, and the least
+    relative margin between a token's k-th and (k+1)-th probability on
+    the CPU."""
+    torch = ctx['torch']
+    from repro_torch.models.layers import _router_probs, _top_k
+    k = cfg.moe.top_k
+    check(len(card) == len(cpu) > 0, f'{len(card)} MoE calls on the card, '
+          f'{len(cpu)} on the CPU')
+    apart, least = 0, math.inf
+    for (x, r), (x_c, r_c) in zip(card, cpu):
+        idx = _top_k(_router_probs(SimpleNamespace(router=r), x),
+                     k)[1].sort(-1)[0]
+        top, idx_c = _top_k(_router_probs(SimpleNamespace(router=r_c), x_c),
+                            k + 1)
+        apart += int((idx.cpu() != idx_c[:, :k].sort(-1)[0]).any(-1).sum())
+        least = min(least, float(((top[:, k - 1] - top[:, k])
+                                  / top[:, k - 1]).min()))
+    return dict(calls=len(card), tokens=sum(x.shape[0] for x, _ in card),
+                tokens_routed_apart=apart, least_margin_cpu=least)
 
 
 def _attention_ms(ctx, cfg):
@@ -3415,6 +3494,285 @@ def phase_dense_train(ctx):
         res['widths'].append(_frontend_step(ctx, arch, g))
         torch.cuda.empty_cache()
     return res
+
+
+# MLA and MoE training (moe_train phase): deepseek-v2-lite-16b at full
+# width and MOE_TRAIN_LAYERS layers (the dense layer 0 and four MoE
+# layers: 2.84e9 parameters, 42.3 GiB of train state at 16 bytes a
+# parameter; its 27 layers would need 234 GiB), with the train phase's
+# batch, length and steps; moonshot-v1-16b-a3b at full width and
+# MOE_WIDTH_LAYERS layers, one lm step at that batch and length.
+MOE_TRAIN_LAYERS = 5
+
+
+def _fan_in_init(ctx, arch, layers):
+    """`arch` at full width and `layers` layers, seeded weights drawn on
+    the card (`init_model`), its stacked matrices then brought from the
+    init's std 1/sqrt(L), L the stacked layers, to 1/sqrt(in)
+    (`_fan_in_scaled`, the CPU tests' rule): at the init's std, 0.5 for
+    four stacked layers, MLA's softmax saturates and a bf16 step is
+    decided by rounding (PERF.md section 6, PRs 27-28)."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import lm as LM
+    cfg = dataclasses.replace(get(arch), n_layers=layers)
+    model = LM.init_model(cfg, seed=ctx['seed'], device=ctx['dev'])
+    _fan_in_scaled(ctx['torch'], model)
+    return cfg, model
+
+
+def _expert_tokens(torch, model, run):
+    """(kept choices per expert of the first MoE layer, dropped choices,
+    all choices over the MoE layers) while run() runs; under remat
+    'layer' each call is counted in the forward and in the recompute."""
+    from repro_torch.models.layers import moe_route
+    first = model.layers[0].ffn
+    per_expert = torch.zeros(first.cfg.moe.num_experts, dtype=torch.long,
+                             device=first.router.device)
+
+    def hook(mod, args):
+        x, cfg = args[0].detach(), args[1] if len(args) > 1 else mod.cfg
+        _, idx, keep, _, _ = moe_route(mod, cfg, x.reshape(-1, x.shape[-1]))
+        per_expert.add_(torch.bincount(idx.reshape(-1)[keep],
+                                       minlength=per_expert.numel()))
+    h = first.register_forward_pre_hook(hook)
+    try:
+        dropped, total = _moe_choices(model, run)
+    finally:
+        h.remove()
+    return per_expert, dropped, total
+
+
+def _moe_train_shares(ctx, model, cfg, busy_us):
+    """CUDA-event ms of one MLA attention and one MoE block of `model` at
+    the train step's (B, T) on seeded hidden states: once without
+    autograd (a checkpointed layer's forward) and once with it plus its
+    backward (its recompute and backward); times their layer counts,
+    their estimated shares of a profiled step's device time."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.kernels.platform import full_f32
+    from repro_torch.models.layers import mla_attention
+    lay = model.layers[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 13)
+    shape = (TRAIN_BATCH, TRAIN_LEN, cfg.d_model)
+    x = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    dy = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    pos = torch.arange(TRAIN_LEN, device=dev).expand(TRAIN_BATCH, TRAIN_LEN)
+    blocks = {'attn': lambda h: mla_attention(lay.attn, cfg, h, pos)[0],
+              'moe': lambda h: lay.ffn(h, cfg)}
+
+    def run(fn, grad):
+        if not grad:
+            with torch.no_grad():
+                return fn(x)
+        leaf = x.detach().requires_grad_(True)
+        params = [p for p in lay.parameters() if p.requires_grad]
+        return torch.autograd.grad(fn(leaf), [leaf] + params, dy,
+                                   allow_unused=True)
+
+    out = {}
+    with full_f32():
+        for name, fn in blocks.items():
+            out[f'{name}_fwd_ms'] = time_ms(torch, lambda: run(fn, False),
+                                            reps=2)
+            out[f'{name}_fwd_bwd_ms'] = time_ms(torch, lambda: run(fn, True),
+                                                reps=2)
+    counts = {'attn': cfg.n_layers, 'moe': cfg.n_layers - 1}
+    for name, n in counts.items():
+        per_step = n * (out[f'{name}_fwd_ms'] + out[f'{name}_fwd_bwd_ms'])
+        out[f'{name}_ms_per_step'] = per_step
+        out[f'{name}_share_of_device_time'] = (per_step * 1e3 / busy_us
+                                               if busy_us else None)
+    return out
+
+
+def _layer0_remat_peaks(ctx, model, cfg, batch):
+    """Peak GiB of one lm `loss_and_grads` at the step's batch with every
+    layer checkpointed (the port's forward_train) and with layer 0 run
+    outside the checkpoint (the reference's `forward_train`): what
+    keeping layer 0's activations costs on the card. The two losses must
+    be equal, bit for bit."""
+    torch = ctx['torch']
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.platform import full_f32
+    from repro_torch.models import lm as LM
+    from repro_torch.train.trainer import loss_and_grads
+    inner = LM.checkpoint
+
+    def outside(fn, lp, *args, **kw):
+        return fn(lp, *args) if lp is model.layer0 else inner(fn, lp, *args,
+                                                              **kw)
+    out = {}
+    for name, ckpt in (('checkpointed', inner), ('outside', outside)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        LM.checkpoint = ckpt
+        try:
+            with full_f32():
+                loss, grads = loss_and_grads(
+                    model, cfg, TrainConfig(remat='layer'), batch)
+        finally:
+            LM.checkpoint = inner
+        torch.cuda.synchronize()
+        out[f'{name}_peak_above_start_gib'] = (
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        out[f'{name}_loss'] = float(loss)
+        del loss, grads
+    check(out['checkpointed_loss'] == out['outside_loss'],
+          f'layer 0 inside and outside the checkpoint differ: {out}')
+    return out
+
+
+def phase_moe_train(ctx):
+    torch, dev = ctx['torch'], ctx['dev']
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import (RewardPipeline, TokenPipeline,
+                                  TokenPipelineConfig)
+    from repro_torch.train.trainer import make_train_step, state_for
+    g = torch.Generator(device=dev)
+    g.manual_seed(ctx['seed'] + 12)
+    t_a = time.perf_counter()
+    cfg, model = _fan_in_init(ctx, MOE_ARCH, MOE_TRAIN_LAYERS)
+    init_s = time.perf_counter() - t_a
+    grad_check = _dense_grad_check(ctx, model, cfg, g)
+    torch.cuda.empty_cache()
+
+    n_steps = TRAIN_LM_STEPS + TRAIN_RANK_STEPS
+    tcfg = TrainConfig(objective='lm', remat='layer', microbatches=1,
+                       warmup_steps=1, decay_steps=n_steps)
+    steps = {'lm': make_train_step(cfg, tcfg),
+             'rank_hinge': make_train_step(cfg, dataclasses.replace(
+                 tcfg, objective='rank_hinge'))}
+    tokens = TokenPipeline(TokenPipelineConfig(cfg.vocab, TRAIN_LEN,
+                                               TRAIN_BATCH, seed=ctx['seed']))
+    rewards = RewardPipeline(cfg.vocab, TRAIN_LEN, TRAIN_BATCH,
+                             seed=ctx['seed'])
+    state = state_for(model)
+    last = len(model.layers) - 1
+    tracked = ('layers.0.ffn.router', 'layers.0.ffn.w1',
+               f'layers.{last}.ffn.shared.w2', 'layers.0.attn.w_uk',
+               f'layers.{last}.attn.w_uv', 'layer0.ffn.w1', 'score_head')
+    params = dict(model.named_parameters())
+    before = {k: (params[k].detach().clone(),
+                  state['opt']['mu'][k]['master'].clone()) for k in tracked}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records, prof = [], None
+    _reset_counts()
+    for i in range(n_steps):
+        objective = 'lm' if i < TRAIN_LM_STEPS else 'rank_hinge'
+        raw = (tokens.batch(i) if objective == 'lm' else
+               {k: v for k, v in rewards.batch(i).items()
+                if k in ('tokens', 'utilities')})
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        if i == 0:
+            lm_batch = batch
+        profiled = i == TRAIN_LM_STEPS - 1      # the last lm step
+        if profiled:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:   # which experts the first step fed, what it dropped
+            ran = []
+            per_expert, dropped, total = _expert_tokens(
+                torch, model,
+                lambda: ran.append(steps[objective](state, batch)))
+            state, metrics = ran.pop()
+        else:
+            state, metrics = steps[objective](state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if profiled:
+            prof.__exit__(None, None, None)
+        rec = dict(step=i + 1, objective=objective, seconds=secs,
+                   profiled=profiled,
+                   **{k: float(v) for k, v in metrics.items()})
+        records.append(rec)
+        check(all(math.isfinite(rec[k]) for k in ('loss', 'gnorm', 'lr')),
+              f'non-finite metrics at step {i + 1}: {rec}')
+    peak = torch.cuda.max_memory_allocated()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    launches = _counts()
+    check(not any(launches.values()),
+          f'a kernel of the port launched on the MoE train path: '
+          f'{launches}')
+    busiest = int(per_expert.argmax())
+    moved = {}
+    for k, (p0, m0) in before.items():
+        p1, m1 = params[k].detach(), state['opt']['mu'][k]['master']
+        if k == 'layers.0.ffn.w1':     # the expert that took most tokens
+            p0, m0, p1, m1 = p0[busiest], m0[busiest], p1[busiest], m1[busiest]
+        moved[k] = dict(param=bool((p1 != p0).any()),
+                        master=bool((m1 != m0).any()))
+    check(all(m['param'] and m['master'] for m in moved.values()),
+          f'the weights did not move: {moved}')
+    check(peak < card_bytes, f'peak {peak} bytes above the card\'s '
+          f'{card_bytes}')
+    lm_secs = sorted(r['seconds'] for r in records if r['objective'] == 'lm')
+    median = lm_secs[len(lm_secs) // 2]
+    busy, n_ops, _ = _device_busy(prof)
+    wall_us = 1e6 * records[TRAIN_LM_STEPS - 1]['seconds']
+    res = dict(arch=MOE_ARCH, card=_card(), batch=TRAIN_BATCH,
+               seq=TRAIN_LEN, layers=cfg.n_layers, init='fan_in',
+               n_params=sum(p.numel() for p in model.parameters()),
+               init_seconds=init_s, grad_check=grad_check,
+               grad_bars=DENSE_GRAD_BARS, embed_grad_bars=EMBED_GRAD_BARS,
+               steps=records, median_lm_step_seconds=median,
+               train_tokens_per_s=TRAIN_BATCH * TRAIN_LEN / median,
+               peak_memory_gib=peak / 2 ** 30,
+               card_memory_gib=card_bytes / 2 ** 30,
+               step1_dropped_share=dropped / total, step1_choices=total,
+               step1_busiest_expert=[busiest, float(
+                   per_expert[busiest] / per_expert.sum())],
+               step1_experts_fed=int((per_expert > 0).sum()), moved=moved)
+    del state, params, before, steps, metrics
+    torch.cuda.empty_cache()
+    res['layer0_remat'] = _layer0_remat_peaks(ctx, model, cfg, lm_batch)
+    res['profile_step'] = dict(
+        objective='lm', step=TRAIN_LM_STEPS, wall_ms=wall_us / 1e3,
+        device_busy_ms=busy / 1e3,
+        idle_share=1.0 - busy / wall_us if n_ops else None,
+        device_ops=n_ops, top_kernels=_top_kernels(prof, k=8),
+        **_moe_train_shares(ctx, model, cfg, busy))
+    del prof, model, lm_batch
+    torch.cuda.empty_cache()
+    res['moonshot'] = _moe_width_step(ctx, g)
+    return res
+
+
+def _moe_width_step(ctx, g):
+    """One lm train step of moonshot-v1-16b-a3b at full width and
+    MOE_WIDTH_LAYERS layers (fan-in-scaled seeded weights) at the train
+    phase's batch and length: finite loss and gnorm."""
+    torch, dev = ctx['torch'], ctx['dev']
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.trainer import make_train_step, state_for
+    torch.cuda.reset_peak_memory_stats()
+    t_a = time.perf_counter()
+    cfg, model = _fan_in_init(ctx, MOE_WIDTH_ARCH, MOE_WIDTH_LAYERS)
+    seq = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_LEN + 1),
+                        generator=g, device=dev, dtype=torch.int32)
+    step = make_train_step(cfg, TrainConfig(remat='layer', warmup_steps=0,
+                                            decay_steps=1))
+    _, metrics = step(state_for(model), {'tokens': seq[:, :-1],
+                                         'targets': seq[:, 1:]})
+    torch.cuda.synchronize()
+    row = dict(arch=MOE_WIDTH_ARCH, layers=cfg.n_layers,
+               d_model=cfg.d_model, attn=cfg.attn, init='fan_in',
+               batch=TRAIN_BATCH, seq=TRAIN_LEN,
+               n_params=sum(p.numel() for p in model.parameters()),
+               seconds=time.perf_counter() - t_a,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               **{k: float(v) for k, v in metrics.items()})
+    check(math.isfinite(row['loss']) and math.isfinite(row['gnorm']),
+          f'{MOE_WIDTH_ARCH}: non-finite train step: {row}')
+    del model, metrics
+    torch.cuda.empty_cache()
+    return row
 
 
 def _bf16_bars(torch, loss_s, a_s, loss_r, a_r):
@@ -3860,7 +4218,7 @@ PHASES = (('build', phase_build), ('parity', phase_parity),
           ('refit', phase_refit), ('sharded', phase_sharded),
           ('lm', phase_lm), ('dense', phase_dense), ('moe', phase_moe),
           ('train', phase_train), ('dense_train', phase_dense_train),
-          ('time', phase_time))
+          ('moe_train', phase_moe_train), ('time', phase_time))
 
 
 def _card() -> str:

@@ -12,8 +12,9 @@ linearithmic pairwise hinge; `lm` is next-token cross-entropy. A vision
 model (`internvl2-26b`) gets seeded image embeddings before the tokens
 and an audio model (`musicgen-medium`) frames from a fixed seeded
 codebook in place of them, as in the reference, under either objective.
-It prints the reference's step and done lines. It runs on the CUDA
-device unless given `--device cpu`.
+The MLA and MoE configs (`deepseek-v2-lite-16b`, `moonshot-v1-16b-a3b`)
+train the same way. It prints the reference's step and done lines. It
+runs on the CUDA device unless given `--device cpu`.
 
 With `--ckpt-dir` it checkpoints every `--ckpt-every` steps (default 50)
 and at the end, with a metrics.jsonl beside them, and a second run with

@@ -33,6 +33,11 @@ Departures that compute the same values with less traffic:
   p = 0 under a correction of exp(0) = 1, which leaves every running sum
   bit for bit as it was (tests/test_torch_attention.py holds the two
   equal).
+* MLA's keys and values are written into buffers a block of 2048
+  positions at a time, where the reference forms them in one product
+  over all positions; under autograd the writes' backward (CopySlices)
+  hands each block's gradient to w_uk, w_uv and the rope key, the
+  gradients the reference's (tests/test_torch_moe_train.py).
 * MLA decode up-projects only the cached positions that the scan visits
   (the blocks of 2048 below `kv_len`), where the reference projects the
   whole capacity every step; the projection runs a block of 2048
@@ -423,22 +428,37 @@ def moe_route(p, cfg, xf):
     return gate, idx, keep, slot, table[:e * cap].view(e, cap)
 
 
+def moe_combine(y_slots, gate, keep, slot):
+    """(n, d): each token's k choices' slot outputs y_slots (e*cap, d),
+    each scaled by its float32 gate (n, k), summed in float32. A dropped
+    choice reads slot 0 under gate 0, as the reference's does: it adds
+    exactly 0 to its token, and in the backward exactly 0 to slot 0 (the
+    gather's backward is an accumulating `index_put_`)."""
+    n, k = gate.shape
+    slot_gate = torch.where(keep, gate.reshape(-1), 0.0)
+    y_tok = y_slots[torch.where(keep, slot, 0)] * slot_gate[:, None]
+    return y_tok.view(n, k, -1).sum(1)
+
+
 def moe_ffn(p, cfg, x):
     """Top-k capacity-based MoE: tokens gathered into an (E, cap, d)
     buffer by the dispatch table (`moe_route`), the experts' gated SiLU
     MLPs as batched products, each kept choice's output scaled by its
-    float32 gate and summed over the k choices in float32, the shared
-    experts' MLP added, and the sum cast to x's dtype."""
+    float32 gate and summed over the k choices in float32
+    (`moe_combine`), the shared experts' MLP added, and the sum cast to
+    x's dtype.
+
+    Under autograd the gradient follows the reference's: the gate, the
+    top-k probabilities renormalized, carries it to the router (through
+    the sort's values, `_top_k`); the routing's integers (the sorts'
+    indices, places, slots and table) carry none."""
     b, t, d = x.shape
     xf = x.reshape(b * t, d)
-    n, k = xf.shape[0], cfg.moe.top_k
     gate, _, keep, slot, table = moe_route(p, cfg, xf)
     x_e = torch.cat([xf, xf.new_zeros((1, d))])[table]       # (e, cap, d)
     h = F.silu(mm(x_e, p.w1)) * mm(x_e, p.w3)
     y_slots = mm(h, p.w2).reshape(-1, d)                      # (e*cap, d)
-    slot_gate = torch.where(keep, gate.reshape(-1), 0.0)
-    y_tok = y_slots[torch.where(keep, slot, 0)] * slot_gate[:, None]
-    y = y_tok.view(n, k, d).sum(1)
+    y = moe_combine(y_slots, gate, keep, slot)
     if cfg.moe.shared_experts:
         y = y + mlp(p.shared, cfg, xf)
     return y.reshape(b, t, d).to(x.dtype)

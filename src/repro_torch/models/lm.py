@@ -15,15 +15,20 @@ config with `dense_d_ff_first` declares its first layer apart, as
 'layer0' (a dense MLP of that width), before the L-1 stacked 'layers';
 the forwards run it first and its cache entry comes first.
 
-RWKV-6 and dense GQA train (`train.trainer`); every family serves
-(`launch/steps.py`).
+Every family trains (`train.trainer`) and serves (`launch/steps.py`).
 The forwards take the model where the reference takes its parameter
 tree, and the config separately, so that one set of weights can run
 either WKV route. `forward_train` runs under autograd, each layer
 checkpointed (`remat='layer'`, the reference's `jax.checkpoint` of its
 scanned layer) so that only the layer boundaries are kept for the
-backward; `chunked_xent` is the LM loss over it. Prefill and decode are
-serving entry points and run without autograd.
+backward; `chunked_xent` is the LM loss over it. A layer 0 declared
+apart is checkpointed too, where the reference runs it outside its
+checkpoint: the values are the same, and on the card its activations
+would stay through the whole backward (chip_smoke.py's moe_train phase
+measures the peak both ways). Under the checkpoint's recompute a MoE
+layer gets its forward's input bit for bit, so it routes as the forward
+did. Prefill and decode are serving entry points and run without
+autograd.
 
 The frontends are stubs, as in the reference (`_assemble_inputs`): a
 vision model takes precomputed image embeddings, placed before the token

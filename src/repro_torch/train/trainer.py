@@ -88,14 +88,11 @@ def make_train_step(cfg, tcfg):
     and 'targets' (lm) or 'utilities' and optionally 'groups'
     (rank_hinge), on the parameters' device.
 
-    The RWKV-6 and dense attention (GQA) families train, their gradients
-    held to the reference's. MLA, MoE and a dense layer 0 serve but do not
-    train yet (ROADMAP Queue 1 item 13(c)(ii)); the Mamba hybrid raises
-    in `models.lm` (13(c)(iii))."""
-    if cfg.attn == 'mla' or cfg.is_moe or cfg.dense_d_ff_first:
-        raise NotImplementedError(
-            f'{cfg.name}: training MLA and MoE is not ported yet (ROADMAP '
-            'Queue 1 item 13(c)(ii)); they serve through launch/steps.py')
+    The RWKV-6, dense attention (GQA), MLA and MoE families train, a
+    dense layer 0 included, their gradients held to the reference's; the
+    Mamba hybrid raises in `models.lm` (ROADMAP Queue 1 item 13(c)(iii)).
+    As in the reference, the loss is the objective's alone: MoE's
+    load-balancing loss (`layers.moe_aux_loss`) is not added."""
     LM.check_family(cfg)
     schedule = make_schedule(cfg, tcfg)
 

@@ -9,8 +9,9 @@ r-level counts, the accumulator's budget), the reduced RWKV-6 prefill
 and train step on the card against the CPU, the sharded oracle on a
 one-rank NCCL group against the CPU, the reduced dense attention model's
 prefill, decode and train step (its frontends too) and the attention's
-float32 gradients against the CPU, and the MoE block and MLA prefill and
-decode against the CPU.
+float32 gradients against the CPU, the MoE block and MLA prefill and
+decode against the CPU, and the reduced MLA and MoE models' train step
+against the CPU, routing asserted alike first.
 
 Every test here needs a CUDA device (Hopper, for the sm_90a kernels) and
 is marked `cuda`; without one it skips. This module imports neither JAX
@@ -1380,3 +1381,94 @@ def test_mla_prefill_and_decode_on_the_card_match_the_cpu(cuda_device):
                                         out['cpu'])):
         bars = (0.01, 0.02) if i in (1, 2, 6, 7) else (0.03, 0.05)
         _inside_bars(got, want, *bars)
+
+
+# -- MLA and MoE training (slice 14) ------------------------------------------
+
+# (arch, objective): the first seed whose every MoE call leaves, on the
+# CPU, a relative margin of at least 1.5e-3 (the test's 1e-3 and room)
+# between each token's k-th and (k+1)-th router probability ('lm' at
+# 2 x 32, 'rank_hinge' at 16 x 4, the CPU tests' sizes)
+MOE_TRAIN_SEEDS = {('deepseek-v2-lite-16b', 'lm'): 3,
+                   ('deepseek-v2-lite-16b', 'rank_hinge'): 4,
+                   ('moonshot-v1-16b-a3b', 'lm'): 0,
+                   ('moonshot-v1-16b-a3b', 'rank_hinge'): 3}
+
+
+def _moe_train_step(arch, objective, seed, dev):
+    """One train step (remat='layer') of reduced `arch` on `dev` from the
+    port's seeded init with the stacked layers' matrices at std
+    1/sqrt(fan-in) (the CPU tests' rule; the router at its own 0.02):
+    (metrics, [(MoE input, router)] of every MoE call, forward and
+    recompute)."""
+    import math
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import RewardPipeline, TokenPipeline
+    from repro_torch.data import TokenPipelineConfig
+    from repro_torch.models.layers import MoE
+    from repro_torch.train.trainer import make_train_step, state_for
+    cfg = reduced(arch)
+    model = LM.init_model(cfg, seed=seed, device='cpu')
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if (name.startswith('layers.') and p.ndim >= 2
+                    and not name.endswith('.router')):
+                p.mul_(math.sqrt(len(model.layers) / p.shape[-2]))
+    model = LM.from_state_dict(cfg, {k: v.to(dev) for k, v in
+                                     model.state_dict().items()})
+    if objective == 'lm':
+        raw = TokenPipeline(TokenPipelineConfig(cfg.vocab, 32, 2,
+                                                seed=seed)).batch(0)
+    else:
+        raw = RewardPipeline(cfg.vocab, 4, 16, seed=seed).batch(0)
+        raw.pop('groups', None)
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: calls.append(
+        (args[0].detach().reshape(-1, cfg.d_model), mod.router.detach())))
+        for m in model.modules() if isinstance(m, MoE)]
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    _, m = make_train_step(cfg, TrainConfig(objective=objective,
+                                            warmup_steps=0))(
+        state_for(model), batch)
+    for h in hooks:
+        h.remove()
+    return {k: float(v) for k, v in m.items()}, calls
+
+
+def _moe_choices_and_margin(calls, k):
+    """Per call the sorted top-k experts, and the least relative margin
+    between a token's k-th and (k+1)-th router probability."""
+    from types import SimpleNamespace
+    from repro_torch.models.layers import _router_probs, _top_k
+    choices, least = [], float('inf')
+    with torch.no_grad():
+        for x, r in calls:
+            top, idx = _top_k(_router_probs(SimpleNamespace(router=r), x),
+                              k + 1)
+            choices.append(idx[:, :k].sort(-1)[0].cpu())
+            least = min(least, float(((top[:, k - 1] - top[:, k])
+                                      / top[:, k - 1]).min()))
+    return choices, least
+
+
+@pytest.mark.parametrize('arch', ['deepseek-v2-lite-16b',
+                                  'moonshot-v1-16b-a3b'])
+@pytest.mark.parametrize('objective', ['lm', 'rank_hinge'])
+def test_moe_train_step_on_the_card_matches_the_cpu(objective, arch,
+                                                    cuda_device):
+    """One train step of reduced deepseek-v2-lite-16b (MLA) or
+    moonshot-v1-16b-a3b (GQA), each a dense layer 0 and two MoE layers,
+    from the same state on both devices: first every MoE call (forward
+    and recompute) routes every token alike on both, the CPU's margin at
+    least 1e-3; then the loss within 2e-3 and gnorm within 2e-2 relative,
+    as for the dense configs above."""
+    seed = MOE_TRAIN_SEEDS[arch, objective]
+    k = reduced(arch).moe.top_k
+    cpu, calls_c = _moe_train_step(arch, objective, seed, 'cpu')
+    card, calls = _moe_train_step(arch, objective, seed, cuda_device)
+    want, least = _moe_choices_and_margin(calls_c, k)
+    got, _ = _moe_choices_and_margin(calls, k)
+    assert least >= 1e-3 and len(got) == len(want) == 4
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert abs(card['loss'] - cpu['loss']) <= 2e-3 * abs(cpu['loss'])
+    assert abs(card['gnorm'] - cpu['gnorm']) <= 2e-2 * cpu['gnorm']

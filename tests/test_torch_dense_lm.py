@@ -267,20 +267,21 @@ def test_init_follows_the_reference_rule():
 
 
 def test_training_the_unported_families_raises():
-    """The dense configs train (tests/test_torch_dense_train*.py); MLA,
-    MoE and a dense layer 0, which serve (tests/test_torch_moe_lm.py),
-    and the Mamba hybrid raise in `make_train_step`, naming their
-    ROADMAP items."""
+    """Only the Mamba hybrid, the one family left unported, raises in
+    `make_train_step`, naming its ROADMAP item 13(c)(iii). The MLA, MoE
+    and dense-layer-0 variants of reduced qwen2.5-3b build a train step
+    (their training is held to the reference's in
+    tests/test_torch_moe_train*.py), as the dense config does."""
     base = reduced('qwen2.5-3b')
     moe = MoEConfig(num_experts=4, top_k=2, moe_d_ff=32)
-    for cfg, item in (
-            (dataclasses.replace(base, attn='mla', mla_kv_lora=32), 'ii'),
-            (dataclasses.replace(base, moe=moe), 'ii'),
-            (dataclasses.replace(base, dense_d_ff_first=64), 'ii'),
-            (dataclasses.replace(base, hybrid_period=8), 'iii')):
-        with pytest.raises(NotImplementedError,
-                           match=f'13\\(c\\)\\({item}\\)'):
-            make_train_step(cfg, TrainConfig())
+    for cfg in (base,
+                dataclasses.replace(base, attn='mla', mla_kv_lora=32),
+                dataclasses.replace(base, moe=moe),
+                dataclasses.replace(base, dense_d_ff_first=64)):
+        assert callable(make_train_step(cfg, TrainConfig()))
+    with pytest.raises(NotImplementedError, match='13\\(c\\)\\(iii\\)'):
+        make_train_step(dataclasses.replace(base, hybrid_period=8),
+                        TrainConfig())
 
 
 def test_unported_families_raise_in_the_model():
